@@ -1,0 +1,50 @@
+"""Resource-allocation scorers in exact int64 floor-division math.
+
+Counterpart of ``koordinator_tpu/ops/scoring.py`` (reference
+``nodenumaresource/least_allocated.go:49-58``, ``most_allocated.go:46-63``,
+the weighted ``sum(score*weight)/weightSum`` of ``least_allocated.go:31-44``).
+Shape-polymorphic over leading batch dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE
+
+
+def _safe(capacity: torch.Tensor) -> torch.Tensor:
+    return torch.where(capacity == 0, torch.ones_like(capacity), capacity)
+
+
+def least_requested_score(
+    requested: torch.Tensor, capacity: torch.Tensor
+) -> torch.Tensor:
+    """((capacity-requested)*MaxNodeScore)//capacity; 0 if cap==0 or req>cap."""
+    requested = requested.long()
+    capacity = capacity.long()
+    score = ((capacity - requested) * MAX_NODE_SCORE) // _safe(capacity)
+    zero = (capacity == 0) | (requested > capacity)
+    return torch.where(zero, torch.zeros_like(score), score)
+
+
+def most_requested_score(
+    requested: torch.Tensor, capacity: torch.Tensor
+) -> torch.Tensor:
+    """(min(requested,capacity)*MaxNodeScore)//capacity; 0 if cap==0."""
+    requested = requested.long()
+    capacity = capacity.long()
+    score = (torch.minimum(requested, capacity) * MAX_NODE_SCORE) // _safe(capacity)
+    return torch.where(capacity == 0, torch.zeros_like(score), score)
+
+
+def weighted_resource_score(
+    per_resource_score: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    """sum_r(score_r * weight_r) // sum_r(weight_r); 0 when the weights sum
+    to 0.  ``per_resource_score``: i64[..., R]; ``weights``: i64[R]."""
+    weights = weights.long()
+    weight_sum = weights.sum()
+    total = (per_resource_score * weights).sum(-1)
+    out = total // weight_sum.clamp(min=1)
+    return torch.where(weight_sum == 0, torch.zeros_like(out), out)

@@ -1,0 +1,248 @@
+"""Sequential greedy assignment: the port's oracle for the cycle kernel.
+
+Counterpart of ``koordinator_tpu/solver/greedy.py``.  The reference
+schedules one pod at a time (PreFilter -> Filter -> Score -> Reserve, the
+next pod seeing the previous pod's Reserve); ``greedy_assign`` reproduces
+that with an eager loop over pods in queue order, carrying (node_requested,
+node_estimated, quota_used).  It runs on any device and is what the CUDA
+cycle kernel is held against.
+
+Queue order follows the Coscheduling QueueSort (``coscheduling.go:118``):
+higher priority first, then stable by index; padding last.  Gang
+all-or-nothing (Permit, ``coscheduling/core/core.go:308``) is applied after
+the loop: pods of a gang below minMember are marked WAIT_GANG.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from koordinator_tpu_torch.config import (
+    DEFAULT_CYCLE_CONFIG,
+    MOST_ALLOCATED,
+    CycleConfig,
+)
+from koordinator_tpu_torch.constraints.gang import gang_satisfaction
+from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
+from koordinator_tpu_torch.ops.fit import nonzero_requests
+from koordinator_tpu_torch.ops.loadaware import (
+    loadaware_node_masks,
+    select_score_usage,
+)
+from koordinator_tpu_torch.ops.scoring import (
+    least_requested_score,
+    most_requested_score,
+    weighted_resource_score,
+)
+
+STATUS_ASSIGNED = 0
+STATUS_UNSCHEDULABLE = 1
+STATUS_WAIT_GANG = 2
+
+INT64_MIN = torch.iinfo(torch.int64).min
+INT64_MAX = torch.iinfo(torch.int64).max
+
+
+@dataclasses.dataclass(frozen=True)
+class CycleResult:
+    assignment: torch.Tensor  # i32[P] node index, -1 = none
+    status: torch.Tensor  # i32[P]
+    node_requested: Optional[torch.Tensor] = None  # i64[N, R] post-cycle
+    node_estimated: Optional[torch.Tensor] = None  # i64[N, R] post-cycle
+    quota_used: Optional[torch.Tensor] = None  # i64[Q, R] post-cycle
+    # which code path produced the result: "cuda" (the cycle kernel) or
+    # "scan" (an eager per-pod loop in plain PyTorch)
+    path: Optional[str] = None
+
+
+def queue_order(priority: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Pod visit order: priority desc, stable by index; padding last."""
+    key = torch.where(
+        valid, -priority.long(), torch.full_like(priority, INT64_MAX, dtype=torch.int64)
+    )
+    return torch.sort(key, stable=True).indices
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeFilterInputs:
+    """The per-node Filter/Score inputs a cycle needs besides its state."""
+
+    node_ok_default: torch.Tensor  # bool[N] valid & LoadAware mask
+    node_ok_prod: torch.Tensor  # bool[N] valid & prod LoadAware mask
+    usage_default: torch.Tensor  # i64[N, R] score usage, non-prod pods
+    usage_prod: torch.Tensor  # i64[N, R] score usage, prod pods
+    # prod pods filter/score differently from the rest under this config
+    prod_sensitive: bool
+
+
+def node_filter_inputs(snapshot: ClusterSnapshot, cfg: CycleConfig) -> NodeFilterInputs:
+    nodes = snapshot.nodes
+    mask_default, mask_prod = loadaware_node_masks(nodes, cfg)
+    if not cfg.enable_loadaware:
+        mask_default = torch.ones_like(mask_default)
+        mask_prod = mask_default
+    usage_np, usage_prod = select_score_usage(nodes, cfg)
+    prod_sensitive = cfg.enable_loadaware and (
+        usage_prod is not None or bool(dict(cfg.loadaware.prod_usage_thresholds))
+    )
+    return NodeFilterInputs(
+        node_ok_default=nodes.valid & mask_default,
+        node_ok_prod=nodes.valid & mask_prod,
+        usage_default=usage_np,
+        usage_prod=usage_prod if usage_prod is not None else usage_np,
+        prod_sensitive=prod_sensitive,
+    )
+
+
+def step_feasible_scores(
+    node_requested: torch.Tensor,  # i64[N, R] carried
+    node_estimated: torch.Tensor,  # i64[N, R] carried
+    quota_used: torch.Tensor,  # i64[Q, R] carried
+    alloc: torch.Tensor,  # i64[N, R]
+    usage: torch.Tensor,  # i64[N, R]
+    fresh: torch.Tensor,  # bool[N]
+    node_ok: torch.Tensor,  # bool[N] valid & loadaware filter
+    req: torch.Tensor,  # i64[R] one pod
+    sreq: torch.Tensor,  # i64[R]
+    est: torch.Tensor,  # i64[R]
+    qid: int,
+    is_valid: bool,
+    qrt: torch.Tensor,  # i64[Q, R]
+    qlim: torch.Tensor,  # bool[Q, R]
+    cfg: CycleConfig,
+):
+    """One pod's Filter+Score against the node state -> (feasible[N],
+    scores[N]).  The single statement of the per-pod step semantics; the
+    CUDA kernel and its plain version repeat it."""
+    fits = ((node_requested + req <= alloc) | (req <= 0)).all(-1)
+    feasible = fits & node_ok
+    if qid >= 0:
+        quota_ok = ((quota_used[qid] + req <= qrt[qid]) | ~qlim[qid]).all()
+        feasible = feasible & quota_ok
+    if not is_valid:
+        feasible = torch.zeros_like(feasible)
+
+    dev = alloc.device
+    total = torch.zeros(alloc.shape[0], dtype=torch.int64, device=dev)
+    if cfg.enable_fit_score:
+        t = node_requested + sreq
+        if cfg.fit_scoring_strategy == MOST_ALLOCATED:
+            per_res = most_requested_score(t, alloc)
+        else:
+            per_res = least_requested_score(t, alloc)
+        total = total + cfg.fit_plugin_weight * weighted_resource_score(
+            per_res, cfg.fit_weights_arr(dev)
+        )
+    if cfg.enable_loadaware:
+        per_res = least_requested_score(usage + node_estimated + est, alloc)
+        la = weighted_resource_score(per_res, cfg.loadaware_weights_arr(dev))
+        la = torch.where(fresh, la, torch.zeros_like(la))
+        total = total + cfg.loadaware_plugin_weight * la
+    return feasible, total
+
+
+def finish_cycle(
+    snapshot: ClusterSnapshot,
+    order: torch.Tensor,  # i64[P] queue order
+    chosen_in_order: torch.Tensor,  # i32[P] node per queue slot, -1 = none
+    node_requested: torch.Tensor,
+    node_estimated: torch.Tensor,
+    quota_used: torch.Tensor,
+    path: str,
+) -> CycleResult:
+    """Scatter the queue-order choices back to pod order and apply the
+    gang all-or-nothing status."""
+    pods = snapshot.pods
+    assignment = torch.full_like(chosen_in_order, -1)
+    assignment[order] = chosen_in_order
+    status = torch.where(
+        assignment >= 0,
+        torch.tensor(STATUS_ASSIGNED, dtype=torch.int32, device=assignment.device),
+        torch.tensor(STATUS_UNSCHEDULABLE, dtype=torch.int32, device=assignment.device),
+    )
+    assigned = (assignment >= 0) & pods.valid
+    _, pod_gang_ok = gang_satisfaction(
+        assignment, pods.valid, pods.gang_id, snapshot.gangs.min_member
+    )
+    status = torch.where(
+        assigned & ~pod_gang_ok, torch.full_like(status, STATUS_WAIT_GANG), status
+    )
+    return CycleResult(
+        assignment=assignment,
+        status=status,
+        node_requested=node_requested,
+        node_estimated=node_estimated,
+        quota_used=quota_used,
+        path=path,
+    )
+
+
+def greedy_assign(
+    snapshot: ClusterSnapshot,
+    cfg: CycleConfig = DEFAULT_CYCLE_CONFIG,
+    extra_mask: Optional[torch.Tensor] = None,  # bool[P, N] extra Filter
+    extra_scores: Optional[torch.Tensor] = None,  # i64[P, N] extra Score
+) -> CycleResult:
+    """Sequential-parity greedy assignment of the whole pending batch, as
+    an eager per-pod loop on the snapshot's device (``path="scan"``).
+
+    The loop reads the pods' ids and flags on the host once; the carried
+    state and every choice stay on the device, so the loop never waits for
+    it.
+    """
+    pods, nodes, quotas = snapshot.pods, snapshot.nodes, snapshot.quotas
+    P = pods.capacity
+    dev = nodes.allocatable.device
+
+    order = queue_order(pods.priority, pods.valid)
+    score_requests = nonzero_requests(pods.requests)
+    nf = node_filter_inputs(snapshot, cfg)
+    is_prod = (pods.priority_class == int(PriorityClass.PROD)).tolist()
+    quota_id = pods.quota_id.tolist()
+    valid = pods.valid.tolist()
+
+    node_requested = nodes.requested.clone()
+    node_estimated = torch.zeros_like(nodes.requested)
+    quota_used = quotas.used.clone()
+    chosen_in_order = torch.empty(P, dtype=torch.int32, device=dev)
+    for i, p in enumerate(order.tolist()):
+        prod = nf.prod_sensitive and is_prod[p]
+        feasible, scores = step_feasible_scores(
+            node_requested,
+            node_estimated,
+            quota_used,
+            nodes.allocatable,
+            nf.usage_prod if prod else nf.usage_default,
+            nodes.metric_fresh,
+            nf.node_ok_prod if prod else nf.node_ok_default,
+            pods.requests[p],
+            score_requests[p],
+            pods.estimated[p],
+            quota_id[p],
+            valid[p],
+            quotas.runtime,
+            quotas.limited,
+            cfg,
+        )
+        if extra_mask is not None:
+            feasible = feasible & extra_mask[p]
+        if extra_scores is not None:
+            scores = scores + extra_scores[p]
+        masked = torch.where(feasible, scores, torch.full_like(scores, INT64_MIN))
+        any_feasible = feasible.any()
+        chosen = torch.where(any_feasible, masked.argmax(), -1)
+        chosen_in_order[i] = chosen
+        node = chosen.clamp(min=0).view(1)
+        take = any_feasible.long()
+        node_requested.index_add_(0, node, (pods.requests[p] * take)[None])
+        node_estimated.index_add_(0, node, (pods.estimated[p] * take)[None])
+        if quota_id[p] >= 0:
+            quota_used[quota_id[p]] += pods.requests[p] * take
+
+    return finish_cycle(
+        snapshot, order, chosen_in_order, node_requested, node_estimated,
+        quota_used, path="scan",
+    )
