@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the batched Koordinator scheduler backend.
 
 The JAX package ``koordinator_tpu`` is the reference; this package re-states
-what it needs in PyTorch, with the per-pod Assign cycle run by a hand-written
-CUDA kernel on an NVIDIA H100 (``solver/cycle_cuda.cu``).  It imports
+what it needs in PyTorch, with the Assign cycle run by hand-written CUDA
+kernels on an NVIDIA H100 (``solver/cycle_cuda.cu``, the per-pod int64
+cycle; ``solver/cycle_wide_cuda.cu``, the per-pod and wave-batched int32
+cycles).  It imports
 ``torch``, ``numpy`` and the standard library only — never ``jax`` and never
 ``koordinator_tpu`` — so it runs where JAX is absent.
 

@@ -61,13 +61,17 @@ class _Built:
 
 
 _LOCK = threading.Lock()
+_SOURCE_LOCKS = {}
 _LOADED = {}
 
 
 def build(source: str) -> _Built:
     """Compile (if needed) and load ``source``, a path relative to the
-    package.  Thread-safe; each source is loaded once per process."""
+    package.  Thread-safe, and two sources build in parallel from two
+    threads; each source is loaded once per process."""
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
         if source in _LOADED:
             return _LOADED[source]
         src = PACKAGE_DIR / source

@@ -130,10 +130,12 @@ class PackingTermArgs:
 class CycleConfig:
     """One scheduling cycle's plugin set and weights.
 
-    ``wave``/``top_m`` select the reference's wave-batched cycle and
-    ``candidate_width``/``candidate_max_stale`` its sparse candidate path;
-    they are carried so that configs round-trip.  The port's cycle runs the
-    per-pod path, whose placements the wave path reproduces bit for bit.
+    ``wave > 1`` selects the wave-batched cycle (``top_m`` candidates per
+    pod): ``run_cycle`` runs the wave kernel on the card and ``wave_assign``
+    on the CPU, with the per-pod path's placements bit for bit and the
+    number of rounds on the result.  ``candidate_width``/
+    ``candidate_max_stale`` select the reference's sparse candidate path;
+    the port carries them so that configs round-trip and does not run it.
     """
 
     loadaware: LoadAwareArgs = LoadAwareArgs()

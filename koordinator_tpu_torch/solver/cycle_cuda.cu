@@ -21,8 +21,8 @@
 //
 // Arithmetic is exact int64 with floor division, the same as the int64
 // PyTorch oracle (solver/greedy.py): no 32-bit range limit, no reciprocal
-// trick.  The extra-plugin tensor is int32 with INT_MIN as the infeasible
-// sentinel; the wrapper guards its magnitude below 2^29.
+// trick.  The extra-plugin tensor is int64 with INT64_MIN as the
+// infeasible sentinel, so it takes extra scores of any int64 magnitude.
 //
 // What bounds it on this card: the pods are a sequential chain (each pod
 // sees the previous pod's Reserve), so the cycle is bound by the latency
@@ -63,7 +63,7 @@ struct CycleParams {
   const int64_t* weights;  // [2, R]: fit, LoadAware
   int64_t fit_wsum, la_wsum, fit_pw, la_pw;
   int most_allocated, enable_fit, enable_la;
-  const int32_t* xcomb;  // [P, N] or null; INT_MIN = infeasible
+  const int64_t* xcomb;  // [P, N] or null; INT64_MIN = infeasible
   int32_t* chosen;       // [P] out
   int64_t* nreq;         // [R, N] in/out
   int64_t* nest;         // [R, N] in/out
@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(kThreads, 1) cycle_kernel(CycleParams c) {
         if (!fits) continue;
         int64_t total = 0;
         if (c.xcomb != nullptr) {
-          const int32_t x = c.xcomb[(size_t)p * N + n];
-          if (x == INT_MIN) continue;
+          const int64_t x = c.xcomb[(size_t)p * N + n];
+          if (x == LLONG_MIN) continue;
           total = x;
         }
         if (c.enable_fit) {
@@ -244,7 +244,7 @@ extern "C" int koord_cycle_launch(
     const uint8_t* flags, const int64_t* qrt, const uint8_t* qlim,
     const int64_t* weights, int64_t fit_wsum, int64_t la_wsum,
     int64_t fit_pw, int64_t la_pw, int most_allocated, int enable_fit,
-    int enable_la, const int32_t* xcomb, int32_t* chosen, int64_t* nreq,
+    int enable_la, const int64_t* xcomb, int32_t* chosen, int64_t* nreq,
     int64_t* nest, int64_t* quse, void* stream) {
   if (P < 0 || N < 1 || R < 1 || R > kMaxResources) {
     return (int)cudaErrorInvalidValue;

@@ -52,10 +52,6 @@ FLAG_OK = 1  # valid & LoadAware default mask
 FLAG_PROD_OK = 2  # valid & LoadAware prod mask
 FLAG_FRESH = 4  # NodeMetric fresh
 
-I32_MIN = torch.iinfo(torch.int32).min
-# extra scores ride xcomb as int32 next to the I32_MIN sentinel
-EXTRA_SCORES_LIMIT = 2**29
-
 # Launches of the cycle kernel in this process; the wrapper adds one where
 # it launches the kernel and nowhere else.
 LAUNCHES = 0
@@ -86,7 +82,7 @@ class CycleInputs:
     qlim: torch.Tensor  # u8[Q, R] quota declares the dimension
     quse0: torch.Tensor  # i64[Q, R] quota used before the cycle
     weights: torch.Tensor  # i64[2, R]: fit, LoadAware resource weights
-    xcomb: Optional[torch.Tensor]  # i32[P, N] extra score, I32_MIN = masked
+    xcomb: Optional[torch.Tensor]  # i64[P, N] extra score, INT64_MIN = masked
 
 
 def prepare_cycle_inputs(
@@ -119,11 +115,8 @@ def prepare_cycle_inputs(
             extra_mask = torch.ones((P, N), dtype=torch.bool, device=dev)
         if extra_scores is None:
             extra_scores = torch.zeros((P, N), dtype=torch.int64, device=dev)
-        comb = torch.where(
-            extra_mask,
-            extra_scores.to(torch.int32),
-            torch.tensor(I32_MIN, dtype=torch.int32, device=dev),
-        )
+        # an extra score of INT64_MIN itself reads as masked
+        comb = torch.where(extra_mask, extra_scores.long(), INT64_MIN)
         xcomb = comb[order].contiguous()
 
     return CycleInputs(
@@ -149,7 +142,7 @@ def prepare_cycle_inputs(
     )
 
 
-def _weight_sums(cfg: CycleConfig):
+def weight_sums(cfg: CycleConfig):
     return (
         sum(res.weights_vector(dict(cfg.fit_resource_weights))),
         sum(res.weights_vector(dict(cfg.loadaware.resource_weights))),
@@ -192,8 +185,8 @@ def cycle_dense_reference(inp: CycleInputs, cfg: CycleConfig):
         total = torch.zeros(alloc.shape[1], dtype=torch.int64, device=dev)
         if inp.xcomb is not None:
             x = inp.xcomb[p]
-            feasible = feasible & (x != I32_MIN)
-            total = total + x.long()
+            feasible = feasible & (x != INT64_MIN)
+            total = total + x
         if cfg.enable_fit_score:
             t = nreq + inp.psreq[p][:, None]
             per_res = (most_requested_score if most else least_requested_score)(
@@ -252,38 +245,49 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"cycle kernel input {name} must be contiguous")
 
 
+def check_kernel_inputs(inp: CycleInputs, what: str, value_dtype=torch.int64) -> None:
+    """Check ``inp`` as a cycle kernel takes it: CUDA tensors, the layouts
+    of ``CycleInputs`` with requests, node and quota values and ``xcomb``
+    in ``value_dtype``, contiguous, 1..32 resources, quota ids in range."""
+    dev = inp.alloc.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    P, R = inp.preq.shape
+    N = inp.alloc.shape[1]
+    Q = inp.qrt.shape[0]
+    v, u8, i32 = value_dtype, torch.uint8, torch.int32
+    for name, dtype, shape in (
+        ("preq", v, (P, R)), ("psreq", v, (P, R)), ("pest", v, (P, R)),
+        ("qid", i32, (P,)), ("pvalid", u8, (P,)), ("pprod", u8, (P,)),
+        ("alloc", v, (R, N)), ("req0", v, (R, N)), ("usage", v, (R, N)),
+        ("uprod", v, (R, N)), ("flags", u8, (N,)), ("qrt", v, (Q, R)),
+        ("qlim", u8, (Q, R)), ("quse0", v, (Q, R)), ("weights", v, (2, R)),
+    ):
+        _check(getattr(inp, name), name, dtype, shape, dev)
+    if inp.xcomb is not None:
+        _check(inp.xcomb, "xcomb", v, (P, N), dev)
+    if not 1 <= R <= 32 or N < 1:
+        raise ValueError(f"{what} takes 1..32 resources and >= 1 node, got R={R} N={N}")
+    if inp.qid.numel() and int(inp.qid.max()) >= Q:
+        raise ValueError(f"quota id out of range for {Q} quota rows")
+
+
 def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig):
     """Launch the CUDA cycle kernel on the current stream; same outputs as
     ``cycle_dense_reference``.  Raises on a bad input or a refused launch."""
     global LAUNCHES
+    check_kernel_inputs(inp, "cycle_dense_cuda")
     dev = inp.alloc.device
-    if dev.type != "cuda":
-        raise ValueError(f"cycle_dense_cuda needs CUDA tensors, got {dev}")
     P, R = inp.preq.shape
     N = inp.alloc.shape[1]
-    Q = inp.qrt.shape[0]
-    i64, u8, i32 = torch.int64, torch.uint8, torch.int32
-    for name, dtype, shape in (
-        ("preq", i64, (P, R)), ("psreq", i64, (P, R)), ("pest", i64, (P, R)),
-        ("qid", i32, (P,)), ("pvalid", u8, (P,)), ("pprod", u8, (P,)),
-        ("alloc", i64, (R, N)), ("req0", i64, (R, N)), ("usage", i64, (R, N)),
-        ("uprod", i64, (R, N)), ("flags", u8, (N,)), ("qrt", i64, (Q, R)),
-        ("qlim", u8, (Q, R)), ("quse0", i64, (Q, R)), ("weights", i64, (2, R)),
-    ):
-        _check(getattr(inp, name), name, dtype, shape, dev)
-    if inp.xcomb is not None:
-        _check(inp.xcomb, "xcomb", i32, (P, N), dev)
-    if not 1 <= R <= 32 or N < 1:
-        raise ValueError(f"cycle kernel takes 1..32 resources and >= 1 node, got R={R} N={N}")
-    if inp.qid.numel() and int(inp.qid.max()) >= Q:
-        raise ValueError(f"quota id out of range for {Q} quota rows")
+    i32 = torch.int32
 
     fn = _kernel()
     chosen = torch.empty(P, dtype=i32, device=dev)
     nreq = inp.req0.clone()
     nest = torch.zeros_like(inp.req0)
     quse = inp.quse0.clone()
-    fit_wsum, la_wsum = _weight_sums(cfg)
+    fit_wsum, la_wsum = weight_sums(cfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
@@ -314,19 +318,6 @@ def cycle_dense(inp: CycleInputs, cfg: CycleConfig):
     return cycle_dense_cuda(inp, cfg)
 
 
-def check_extra_scores(extra_scores: Optional[torch.Tensor]) -> None:
-    """Extra scores ride the kernel as int32 beside the I32_MIN sentinel:
-    refuse magnitudes >= 2^29."""
-    if extra_scores is None or extra_scores.numel() == 0:
-        return
-    peak = int(extra_scores.abs().max())
-    if peak >= EXTRA_SCORES_LIMIT:
-        raise ValueError(
-            f"extra_scores magnitude {peak} >= 2^29: out of the cycle "
-            "kernel's int32 extra-score range; use greedy_assign"
-        )
-
-
 def greedy_assign_dense(
     snapshot: ClusterSnapshot,
     cfg: CycleConfig = DEFAULT_CYCLE_CONFIG,
@@ -335,8 +326,8 @@ def greedy_assign_dense(
 ) -> CycleResult:
     """Drop-in for ``greedy_assign`` through the single-launch cycle:
     ``path="cuda"`` on a CUDA snapshot, ``path="scan"`` (the kernel's plain
-    version) on a CPU snapshot.  Bit-identical to ``greedy_assign``."""
-    check_extra_scores(extra_scores)
+    version) on a CPU snapshot.  Bit-identical to ``greedy_assign``, extra
+    scores of any int64 magnitude included."""
     inp = prepare_cycle_inputs(snapshot, cfg, extra_mask, extra_scores)
     chosen, nreq, nest, quse = cycle_dense(inp, cfg)
     path = "scan" if inp.alloc.device.type == "cpu" else "cuda"

@@ -53,8 +53,10 @@ class CycleResult:
     node_requested: Optional[torch.Tensor] = None  # i64[N, R] post-cycle
     node_estimated: Optional[torch.Tensor] = None  # i64[N, R] post-cycle
     quota_used: Optional[torch.Tensor] = None  # i64[Q, R] post-cycle
-    # which code path produced the result: "cuda" (the cycle kernel) or
-    # "scan" (an eager per-pod loop in plain PyTorch)
+    # sequential wave rounds of a wave-batched cycle; None for a per-pod one
+    rounds: Optional[torch.Tensor] = None
+    # which code path produced the result: "cuda" (a cycle kernel), "scan"
+    # (an eager per-pod loop in plain PyTorch) or "wave" (``wave_assign``)
     path: Optional[str] = None
 
 
@@ -152,6 +154,7 @@ def finish_cycle(
     node_estimated: torch.Tensor,
     quota_used: torch.Tensor,
     path: str,
+    rounds: Optional[torch.Tensor] = None,
 ) -> CycleResult:
     """Scatter the queue-order choices back to pod order and apply the
     gang all-or-nothing status."""
@@ -176,6 +179,7 @@ def finish_cycle(
         node_requested=node_requested,
         node_estimated=node_estimated,
         quota_used=quota_used,
+        rounds=rounds,
         path=path,
     )
 

@@ -160,20 +160,28 @@ def test_cycle_matches_reference(case, engine):
         assert (got.assignment < 0).any()
 
 
-@pytest.mark.parametrize("peak,raises", [(2**29 - 1, False), (2**29, True), (-(2**29), True)])
+@pytest.mark.parametrize("peak,raises", [
+    (2**29 - 1, False), (2**29, True), (-(2**29), True), (2**62, True), (-(2**62), True),
+])
 def test_extra_scores_guard(peak, raises):
+    """The JAX dense kernel refuses extra scores of magnitude >= 2^29 (they
+    ride its int32 xcomb); the port's dense kernel carries xcomb in int64
+    and equals ``greedy_assign`` at every magnitude, masked nodes included."""
     js, ts = encode_pair(quota_lists(16, 4), quota=True)
     P, N = ts.pods.capacity, ts.nodes.capacity
     s = np.zeros((P, N), np.int64)
     s[1, 2] = peak
+    s[3, :] = peak
+    mask = np.ones((P, N), bool)
+    mask[3, 1] = False
     if raises:
         with pytest.raises(ValueError, match="2\\^29"):
-            dense.greedy_assign_dense(ts, extra_scores=torch.from_numpy(s))
-        with pytest.raises(ValueError, match="2\\^29"):
             j_dense(js, extra_scores=jnp.asarray(s), interpret=True)
-    else:
-        assert_cycle_equal(dense.greedy_assign_dense(ts, extra_scores=torch.from_numpy(s)),
-                           j_greedy_assign(js, extra_scores=jnp.asarray(s)))
+    got = dense.greedy_assign_dense(ts, extra_mask=torch.from_numpy(mask),
+                                    extra_scores=torch.from_numpy(s))
+    assert got.path == "scan"
+    assert_cycle_equal(got, j_greedy_assign(js, extra_mask=jnp.asarray(mask),
+                                            extra_scores=jnp.asarray(s)))
 
 
 RUN_CYCLE_CASES = {

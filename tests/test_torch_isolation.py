@@ -46,12 +46,18 @@ sys.modules["jaxlib"] = None
 import koordinator_tpu_torch
 import koordinator_tpu_torch.solver
 from koordinator_tpu_torch.harness import generators
+from koordinator_tpu_torch.config import CycleConfig
 from koordinator_tpu_torch.solver import run_cycle
 snap = generators.quota_colocation_snapshot(pods=24, nodes=6, device="cpu")[0]
 res = run_cycle(snap)
+wave = run_cycle(snap, CycleConfig(wave=8, top_m=2))
 loaded = sorted(m for m in sys.modules
                 if m == "koordinator_tpu" or m.startswith("koordinator_tpu."))
 print(json.dumps({"placed": int((res.assignment >= 0).sum()), "path": res.path,
+                  "wave_path": wave.path, "wave_rounds": int(wave.rounds) > 0,
+                  "same": bool((wave.assignment == res.assignment).all()),
+                  "port_modules": sorted(m for m in sys.modules
+                                         if m.startswith("koordinator_tpu_torch.solver.")),
                   "reference_modules": loaded}))
 """
 
@@ -63,7 +69,11 @@ def test_port_runs_a_cycle_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"placed": 24, "path": "scan", "reference_modules": []}
+    ported = got.pop("port_modules")
+    assert got == {"placed": 24, "path": "scan", "wave_path": "wave", "wave_rounds": True,
+                   "same": True, "reference_modules": []}
+    for mod in ("dense", "greedy", "wave", "wide"):
+        assert f"koordinator_tpu_torch.solver.{mod}" in ported
 
 
 def test_chip_smoke_needs_the_port_beside_it(tmp_path):
