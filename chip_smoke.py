@@ -6,10 +6,11 @@
 Phases (any failure raises and exits non-zero, printing no result):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the three cycle kernels from their two sources, one ``nvcc`` per
-   source, both started together: K1 (``solver/cycle_cuda.cu``), K2 and K3
-   (``solver/cycle_wide_cuda.cu``); build seconds, ptxas registers and
-   spills of each kernel;
+2. build the three cycle kernels from their two sources, and the
+   instrumented build of each source (``-DKOORD_PHASE_CLOCK``), one
+   ``nvcc`` per build, all started together: K1 (``solver/cycle_cuda.cu``),
+   K2 and K3 (``solver/cycle_wide_cuda.cu``); build seconds, ptxas
+   registers and spills of each kernel, and a failure on any spill byte;
 3. every kernel against its plain version on the card, exactly, on every
    case of ``build_cases``: K1 (``greedy_assign_dense``) against
    ``greedy_assign``; K2 (``greedy_assign_wide`` at wave 1) and K3 (at
@@ -17,7 +18,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``wave_cycle_reference``, all five ``CycleResult`` arrays and K3's
    rounds; then K3 under MostAllocated at (8, 4) and on the contention
    case, and K1 on extra scores beyond the int32 kernels' range (which
-   ``greedy_assign_wide`` refuses);
+   ``greedy_assign_wide`` refuses); then the cases of ``cluster_cases``,
+   which exercise the cluster layer of K1 and K3 (fewer nodes than CTAs, a
+   node count that is no multiple of the cluster size, identical nodes whose
+   ties cross slice borders, MostAllocated on the wave path, and node
+   slices too large for shared memory, which take the device-memory path),
+   each kernel exact against its plain version, K3's rounds included;
 4. the headlines on the 10k-pod x 2k-node quota_colocation snapshot, each
    path driven through ``run_cycle`` on the inputs that select its kernel,
    with every launch count set to 0 just before it and read just after,
@@ -26,7 +32,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    timed alone and its plain version once: K2's path ``run_cycle(snap)``,
    K3's path ``run_cycle(snap, CycleConfig(wave=32, top_m=4))``, K1's path
    ``run_cycle(snap, extra_mask=..., extra_scores=...)`` with extra scores
-   up to 2^31 (and the wave request on them, which K1 also takes);
+   up to 2^31 (and the wave request on them, which K1 also takes); the
+   ``wave_headline`` and ``dense_headline`` lines carry each cluster plan
+   (cluster size, shared bytes per CTA, occupancy at 8 and 16 CTAs) and
+   K3's phase-A, merge and phase-B microseconds per round, and K1's
+   microseconds per pod step in Filter/Score, barrier and merge, from the
+   instrumented builds of the same sources;
 5. the reference anchors: the digest of the per-pod (K2 and K1) and of the
    wave cycle on a fixed mid-size snapshot against ``harness/anchor.py``'s
    constant, and the wave cycle's rounds against the reference kernel's,
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -173,6 +185,44 @@ def contention_case(dev):
     return encode_snapshot(nodes, pods, [], [], device=dev)
 
 
+def identical_nodes_case(dev, nodes, pods):
+    """``nodes`` identical nodes and ``pods`` pods of three shapes: every
+    pod's scores tie across the nodes, so each argmax and top-M crosses the
+    slice borders of the cluster kernels."""
+    from koordinator_tpu_torch.model import encode_snapshot
+
+    node_list = [{"name": f"same-{i}",
+                  "allocatable": {"cpu": "8000m", "memory": 32 << 30, "pods": 110}}
+                 for i in range(nodes)]
+    shapes = (("500m", 1 << 30), ("1500m", 2 << 30), ("250m", 512 << 20))
+    pod_list = [{"name": f"pod-{p}",
+                 "requests": {"cpu": shapes[p % 3][0], "memory": shapes[p % 3][1], "pods": 1}}
+                for p in range(pods)]
+    return encode_snapshot(node_list, pod_list, [], [], node_bucket=nodes, device=dev)
+
+
+def cluster_cases(dev):
+    """(name, snapshot, cfg, resident) for the cluster layer of K1 and K3:
+    ``resident`` is whether the node slices must fit in shared memory (the
+    last case is built to overflow it and take the device-memory path)."""
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import generators as g
+
+    most = CycleConfig(fit_scoring_strategy="MostAllocated")
+    q5 = g.quota_colocation_snapshot(pods=64, nodes=5, device=dev)[0]
+    q37 = g.quota_colocation_snapshot(pods=300, nodes=37, device=dev)[0]
+    same = identical_nodes_case(dev, nodes=40, pods=200)
+    big = g.quota_colocation_snapshot(pods=256, nodes=16384, device=dev)[0]
+    return [
+        ("five_nodes", q5, CycleConfig(), True),
+        ("37_nodes", q37, CycleConfig(), True),
+        ("37_nodes_most_allocated", q37, most, True),
+        ("identical_40_nodes", same, CycleConfig(), True),
+        ("identical_40_nodes_most_allocated", same, most, True),
+        ("device_memory_16384_nodes", big, CycleConfig(), False),
+    ]
+
+
 def extras_beyond_int32(snap, seed):
     """(extra_mask, extra_scores) on the snapshot's device, made from
     ``seed``: 90 % of the (pod, node) pairs admitted, scores uniform in
@@ -211,6 +261,67 @@ def wide_parity(name, snap, cfg, xm, xs):
     ):
         raise AssertionError(f"{name}: rounds {got.rounds} != plain {want.rounds}")
     return got
+
+
+def wave_phase_split(inp, cfg):
+    """K3's round split, from one run of the instrumented build of its
+    source: the leader's clock64 cycles of phase A (with the staging and
+    the barrier), the merge and phase B (with its barrier) split the run's
+    CUDA-event time; the staging and phase B's re-keys are shown apart."""
+    import torch
+
+    from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.solver import wide
+
+    def run():
+        return wide.wave_cycle_cuda(inp, cfg, cfg.wave, cfg.top_m, defines=_build.PHASE_CLOCK)
+
+    run()
+    torch.cuda.synchronize()
+    wide.wave_phase_cycles()  # drop the warm-up's counts
+    ms, out = timed_once(run)
+    a, m, b, staging, rekey = wide.wave_phase_cycles()
+    rounds = int(out[4][0])
+    total = max(a + m + b, 1)
+    us = ms * 1e3
+
+    def per_round(cycles):
+        return us * cycles / total / rounds
+
+    return {"rounds": rounds, "instrumented_kernel_ms": ms,
+            "phase_a_us_per_round": per_round(a), "merge_us_per_round": per_round(m),
+            "phase_b_us_per_round": per_round(b),
+            "staging_in_phase_a_us_per_round": per_round(staging),
+            "rekeys_in_phase_b_us_per_round": per_round(rekey),
+            "leader_cycles_per_us": total / us}
+
+
+def dense_pod_split(inp, cfg):
+    """K1's pod step split, from one run of the instrumented build of its
+    source: rank 0's clock64 cycles of quota and Filter/Score, of staging
+    the next pod, of the warp reduction and cluster barrier, and of the
+    merge and Reserve split the run's CUDA-event time over the valid
+    pods."""
+    import torch
+
+    from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.solver import dense
+
+    def run():
+        return dense.cycle_dense_cuda(inp, cfg, defines=_build.PHASE_CLOCK)
+
+    run()
+    torch.cuda.synchronize()
+    dense.phase_cycles()  # drop the warm-up's counts
+    ms, _ = timed_once(run)
+    parts = dense.phase_cycles()
+    pods = int((inp.pvalid != 0).sum())
+    total = max(sum(parts), 1)
+    us = ms * 1e3
+    names = ("score_us_per_pod", "stage_us_per_pod", "barrier_us_per_pod",
+             "merge_reserve_us_per_pod")
+    out = {name: us * v / total / pods for name, v in zip(names, parts)}
+    return {"instrumented_kernel_ms": ms, **out, "rank0_cycles_per_us": total / us}
 
 
 def _io_bytes(inp) -> int:
@@ -298,15 +409,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     phase_done("1_card")
 
-    # phase 2: one nvcc per source, both started together
-    sources = (dense.KERNEL_SOURCE, wide.KERNEL_SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(_build.build, sources))
-    for built_one in built:
-        print(f"build: {built_one.path.name} in {built_one.seconds:.2f} s")
+    # phase 2: one nvcc per build, all started together
+    builds = ((dense.KERNEL_SOURCE, ()), (wide.KERNEL_SOURCE, ()),
+              (dense.KERNEL_SOURCE, _build.PHASE_CLOCK), (wide.KERNEL_SOURCE, _build.PHASE_CLOCK))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: _build.build(*b), builds))
+    for (_, defines), built_one in zip(builds, built):
+        print(f"build: {built_one.path.name} {' '.join(defines)} in {built_one.seconds:.2f} s")
         for line in built_one.log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas: {line.strip()}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", built_one.log)]
+        if not spills or any(spills):
+            raise AssertionError(f"{built_one.path.name}: ptxas spill bytes {spills}")
     phase_done("2_build")
 
     # phase 3
@@ -353,6 +468,27 @@ def main() -> int:
     print(f"parity extras_beyond_int32: K1 exact, "
           f"{int((got.assignment >= 0).sum())}/{quota_small.num_pods} placed; "
           "the int32 entry refuses them")
+    for name, snap, cfg, resident in cluster_cases(dev):
+        got = dense.greedy_assign_dense(snap, cfg)
+        want = greedy_assign(snap, cfg)
+        torch.cuda.synchronize()
+        if got.path != "cuda":
+            raise AssertionError(f"{name}: kernel path not taken ({got.path})")
+        assert_same(name, got, want)
+        plans = {"K1": dense.cycle_plan(dense.prepare_cycle_inputs(snap, cfg)),
+                 "K3": wide.wave_plan(wide.prepare_wide_inputs(snap, cfg), 32, 4)}
+        for kernel, plan in plans.items():
+            if bool(plan["resident"]) != resident:
+                raise AssertionError(f"{name}: {kernel} plan {plan}, want resident={resident}")
+        rounds = []
+        for wave, top_m in ((1, cfg.top_m), (8, 2), (32, 4)):
+            res = wide_parity(f"{name} wave={wave}",
+                              snap, dataclasses.replace(cfg, wave=wave, top_m=top_m), None, None)
+            if res.rounds is not None:
+                rounds.append(int(res.rounds))
+        print(f"parity {name}: K1, K2, K3 exact, {int((got.assignment >= 0).sum())}/"
+              f"{snap.num_pods} placed on {snap.num_nodes} nodes, K3 rounds (8,2) {rounds[0]} "
+              f"(32,4) {rounds[1]}; K1 plan {plans['K1']}; K3 plan {plans['K3']}")
     phase_done("3_parity")
 
     # phase 4: the headline snapshot
@@ -424,12 +560,16 @@ def main() -> int:
         lambda *a, **kw: wide.wave_cycle_reference(*a, **kw, stats=stats),
         inp_w, cfg_w, **WAVE_CFG)
     k3_bound, k3_bound_by = cycle_bound_ms(inp_w, extra_out_bytes=4)
+    split = wave_phase_split(inp_w, cfg_w)
+    if split["rounds"] != int(result_w.rounds):
+        raise AssertionError(f"instrumented K3 rounds {split['rounds']} != {int(result_w.rounds)}")
     print(json.dumps({"wave_headline": {
         "path": "run_cycle(snap, CycleConfig(wave=32, top_m=4))", "kernel": "wave_cycle",
         "snapshot": snapshot_desc, "assigned": int((result_w.assignment >= 0).sum()),
         "rounds": int(result_w.rounds), "cycle_ms_cuda_events": w_ev,
         "cycle_ms_host_wall": w_wall, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound, "work": stats, "timed_runs": TIMED_RUNS,
+        "cluster": wide.wave_plan(inp_w, **WAVE_CFG), "phase_split": split,
         "parity": "exact vs greedy_assign",
     }}))
 
@@ -459,6 +599,7 @@ def main() -> int:
         "assigned": int((result_x.assignment >= 0).sum()), "cycle_ms_cuda_events": x_ev,
         "cycle_ms_host_wall": x_wall, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound, "kernel_ms_without_extras": k1_no_extras_ms,
+        "cluster": dense.cycle_plan(inp_x), "pod_split": dense_pod_split(inp_x, cfg),
         "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
     }}))
     phase_done("4_headline")

@@ -7,9 +7,9 @@ Counterpart of ``koordinator_tpu/solver/pallas_dense.py``
 order, non-zero score requests, LoadAware masks and score usage, the prod
 split, the weights, and the combined extra-plugin tensor ``xcomb``.  The
 cycle itself is ``cycle_dense``: on CUDA tensors it launches the kernel in
-``cycle_cuda.cu`` (one launch per cycle); on CPU tensors it runs
-``cycle_dense_reference``, the plain version with the same inputs and
-outputs.  Gang status is applied after the cycle.
+``cycle_cuda.cu`` (one launch of one thread-block cluster per cycle); on
+CPU tensors it runs ``cycle_dense_reference``, the plain version with the
+same inputs and outputs.  Gang status is applied after the cycle.
 
 Layouts: pod rows are [P, R] in queue order; node tensors are
 resource-major [R, N] so that the kernel's threads, one per node, read
@@ -218,21 +218,49 @@ def cycle_dense_reference(inp: CycleInputs, cfg: CycleConfig):
 
 
 _LAUNCH_ARGTYPES = (
-    [ctypes.c_int] * 3  # P, N, R
+    [ctypes.c_int] * 4  # P, N, R, Q
     + [ctypes.c_void_p] * 13  # preq .. weights
     + [ctypes.c_int64] * 4  # fit_wsum, la_wsum, fit_pw, la_pw
     + [ctypes.c_int] * 3  # most_allocated, enable_fit, enable_la
-    + [ctypes.c_void_p] * 6  # xcomb, chosen, nreq, nest, quse, stream
+    + [ctypes.c_void_p] * 8  # xcomb, chosen, nreq, nest, quse, magic, shift, stream
 )
+PLAN_KEYS = ("cluster_size", "slice_nodes", "resident", "smem_bytes_per_cta",
+             "max_active_clusters_8", "max_active_clusters_16")
 
 
-def _kernel():
-    built = _build.build(KERNEL_SOURCE)
-    fn = built.lib.koord_cycle_launch
-    if fn.argtypes is None:
-        fn.argtypes = _LAUNCH_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def read_plan(fn, *args) -> dict:
+    """Call a kernel's plan entry ``fn(*args, out)``: the cluster size, the
+    nodes of a slice, whether the slice is resident in shared memory, the
+    dynamic shared bytes per CTA and ``cudaOccupancyMaxActiveClusters`` at 8
+    and 16 CTAs."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"cluster plan failed: cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def uprod_shared(inp: CycleInputs) -> int:
+    """1 when the prod score usage is the default one (one tensor)."""
+    return int(inp.uprod.data_ptr() == inp.usage.data_ptr())
+
+
+def cycle_plan(inp: CycleInputs) -> dict:
+    """The cluster plan the kernel takes for ``inp`` (``read_plan``)."""
+    R, N = inp.alloc.shape
+    fn = _build.entry(KERNEL_SOURCE, "koord_cycle_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(inp.alloc.device):
+        return read_plan(fn, N, R, inp.qrt.shape[0], uprod_shared(inp))
+
+
+def reciprocal_tables(plan: dict, R: int, N: int, dtype, dev):
+    """The device tables of a cycle whose node slices do not fit in shared
+    memory: one reciprocal (``dtype`` holds its bits) and one shift per (r,
+    n).  None when the slices are resident."""
+    if plan["resident"]:
+        return None, None
+    return (torch.empty((R, N), dtype=dtype, device=dev),
+            torch.empty((R, N), dtype=torch.uint8, device=dev))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -272,9 +300,19 @@ def check_kernel_inputs(inp: CycleInputs, what: str, value_dtype=torch.int64) ->
         raise ValueError(f"quota id out of range for {Q} quota rows")
 
 
-def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig):
+def phase_cycles():
+    """The instrumented build's clock64 counters, summed since the last
+    read (reading resets them): rank 0's pod-step cycles of quota and
+    Filter/Score, of staging the next pod, of the reduction and barrier, and
+    of the merge and Reserve."""
+    return _build.read_counters(KERNEL_SOURCE, "koord_cycle_phase_cycles", 4)
+
+
+def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     """Launch the CUDA cycle kernel on the current stream; same outputs as
-    ``cycle_dense_reference``.  Raises on a bad input or a refused launch."""
+    ``cycle_dense_reference``.  Raises on a bad input or a refused launch.
+    ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
+    same source (``phase_cycles``)."""
     global LAUNCHES
     check_kernel_inputs(inp, "cycle_dense_cuda")
     dev = inp.alloc.device
@@ -282,7 +320,8 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig):
     N = inp.alloc.shape[1]
     i32 = torch.int32
 
-    fn = _kernel()
+    fn = _build.entry(KERNEL_SOURCE, "koord_cycle_launch", _LAUNCH_ARGTYPES, defines)
+    magic, shift = reciprocal_tables(cycle_plan(inp), R, N, torch.int64, dev)
     chosen = torch.empty(P, dtype=i32, device=dev)
     nreq = inp.req0.clone()
     nest = torch.zeros_like(inp.req0)
@@ -291,7 +330,7 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            P, N, R,
+            P, N, R, inp.qrt.shape[0],
             inp.preq.data_ptr(), inp.psreq.data_ptr(), inp.pest.data_ptr(),
             inp.qid.data_ptr(), inp.pvalid.data_ptr(), inp.pprod.data_ptr(),
             inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.uprod.data_ptr(),
@@ -302,7 +341,8 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig):
             int(cfg.enable_fit_score), int(cfg.enable_loadaware),
             inp.xcomb.data_ptr() if inp.xcomb is not None else None,
             chosen.data_ptr(), nreq.data_ptr(), nest.data_ptr(), quse.data_ptr(),
-            stream,
+            None if magic is None else magic.data_ptr(),
+            None if shift is None else shift.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"cycle kernel launch failed: cudaError {err}")

@@ -28,7 +28,9 @@ extraction) is a VMEM-layout device and is not carried over.
   blocks.
 
 On CUDA tensors the wrappers launch the kernels in ``cycle_wide_cuda.cu``
-(one launch per cycle each); on CPU tensors they run the plain versions.
+(one launch per cycle each: one CTA for the per-pod kernel, one
+thread-block cluster for the wave kernel); on CPU tensors they run the
+plain versions.
 """
 
 from __future__ import annotations
@@ -321,19 +323,11 @@ _COMMON_ARGTYPES = (
 )
 _WIDE_ARGTYPES = _COMMON_ARGTYPES + [ctypes.c_void_p]  # stream
 _WAVE_ARGTYPES = (
-    _COMMON_ARGTYPES
+    _COMMON_ARGTYPES[:3] + [ctypes.c_int] + _COMMON_ARGTYPES[3:]  # P, N, R, Q, ...
     + [ctypes.c_int] * 2  # wave, top_m
-    + [ctypes.c_void_p] * 3  # scratch, rounds, stream
+    + [ctypes.c_void_p] * 4  # magic, shift, rounds, stream
 )
-
-
-def _entry(name: str, argtypes):
-    built = _build.build(KERNEL_SOURCE)
-    fn = getattr(built.lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+_WAVE_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _checked_common(inp: CycleInputs, cfg: CycleConfig, what: str):
@@ -369,7 +363,7 @@ def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig):
     """Launch the per-pod wide kernel on the current stream; same outputs
     as ``cycle_wide_reference``.  Raises on a bad input or a refused launch."""
     outs, args = _checked_common(inp, cfg, "cycle_wide_cuda")
-    fn = _entry("koord_wide_cycle_launch", _WIDE_ARGTYPES)
+    fn = _build.entry(KERNEL_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES)
     dev = inp.alloc.device
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
@@ -379,26 +373,46 @@ def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig):
     return outs
 
 
-def wave_cycle_cuda(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: int):
+def wave_plan(inp: CycleInputs, wave: int, top_m: int) -> dict:
+    """The cluster plan the wave kernel takes for ``inp``
+    (``dense.read_plan``)."""
+    R, N = inp.alloc.shape
+    W, M = wave_dims(N, wave, top_m)
+    fn = _build.entry(KERNEL_SOURCE, "koord_wave_plan", _WAVE_PLAN_ARGTYPES)
+    with torch.cuda.device(inp.alloc.device):
+        return dense.read_plan(fn, N, R, inp.qrt.shape[0], W, M, dense.uprod_shared(inp))
+
+
+def wave_cycle_cuda(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: int, defines=()):
     """Launch the wave cycle kernel on the current stream; same outputs as
-    ``wave_cycle_reference``.  Raises on a bad input or a refused launch."""
+    ``wave_cycle_reference``.  Raises on a bad input or a refused launch.
+    ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
+    same source (``wave_phase_cycles``)."""
     if wave < 2 or top_m < 1:
         raise ValueError(f"wave cycle takes wave >= 2 and top_m >= 1, got {wave}, {top_m}")
     outs, args = _checked_common(inp, cfg, "wave_cycle_cuda")
     dev = inp.alloc.device
-    N = inp.alloc.shape[1]
+    R, N = inp.alloc.shape
     W, M = wave_dims(N, wave, top_m)
-    # per wave lane: the frozen scores of every node, then its top-M pairs
-    scratch = torch.empty(W * (N + 2 * M), dtype=torch.int32, device=dev)
+    magic, shift = dense.reciprocal_tables(wave_plan(inp, wave, top_m), R, N, torch.int32, dev)
     rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _entry("koord_wave_cycle_launch", _WAVE_ARGTYPES)
+    fn = _build.entry(KERNEL_SOURCE, "koord_wave_cycle_launch", _WAVE_ARGTYPES, defines)
     with torch.cuda.device(dev):
-        err = fn(*args, W, M, scratch.data_ptr(), rounds.data_ptr(),
+        err = fn(*args[:3], inp.qrt.shape[0], *args[3:], W, M,
+                 None if magic is None else magic.data_ptr(),
+                 None if shift is None else shift.data_ptr(), rounds.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wave cycle kernel launch failed: cudaError {err}")
     LAUNCHES["wave_cycle"] += 1
     return outs + (rounds,)
+
+
+def wave_phase_cycles():
+    """The instrumented build's leader-thread cycles summed over the rounds
+    since the last read, as (phase A, merge, phase B, the staging within
+    phase A, the re-keys within phase B); reading resets them."""
+    return _build.read_counters(KERNEL_SOURCE, "koord_wave_phase_cycles", 5)
 
 
 def run_wide(inp: CycleInputs, cfg: CycleConfig):
