@@ -8,9 +8,11 @@ Phases (any failure raises and exits non-zero, printing no result):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the three cycle kernels from their two sources, and the
    instrumented build of each source (``-DKOORD_PHASE_CLOCK``), one
-   ``nvcc`` per build, all started together: K1 (``solver/cycle_cuda.cu``),
-   K2 and K3 (``solver/cycle_wide_cuda.cu``); build seconds, ptxas
-   registers and spills of each kernel, and a failure on any spill byte;
+   ``nvcc`` per build, all started together: K1 and K2
+   (``solver/cycle_cuda.cu``, one templated per-pod body instantiated in
+   int64 and int32) and K3 (``solver/cycle_wide_cuda.cu``); build seconds,
+   ptxas registers and spills of each kernel, and a failure on any spill
+   byte;
 3. every kernel against its plain version on the card, exactly, on every
    case of ``build_cases``: K1 (``greedy_assign_dense``) against
    ``greedy_assign``; K2 (``greedy_assign_wide`` at wave 1) and K3 (at
@@ -19,11 +21,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    rounds; then K3 under MostAllocated at (8, 4) and on the contention
    case, and K1 on extra scores beyond the int32 kernels' range (which
    ``greedy_assign_wide`` refuses); then the cases of ``cluster_cases``,
-   which exercise the cluster layer of K1 and K3 (fewer nodes than CTAs, a
-   node count that is no multiple of the cluster size, identical nodes whose
-   ties cross slice borders, MostAllocated on the wave path, and node
-   slices too large for shared memory, which take the device-memory path),
-   each kernel exact against its plain version, K3's rounds included;
+   which exercise the cluster layer of K1, K2 and K3 (fewer nodes than
+   CTAs, a node count that is no multiple of the cluster size, identical
+   nodes whose ties cross slice borders, MostAllocated, and node slices too
+   large for shared memory, which take the device-memory path: each
+   kernel's plan must agree), each kernel exact against its plain version,
+   K3's rounds included;
 4. the headlines on the 10k-pod x 2k-node quota_colocation snapshot, each
    path driven through ``run_cycle`` on the inputs that select its kernel,
    with every launch count set to 0 just before it and read just after,
@@ -33,11 +36,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    K3's path ``run_cycle(snap, CycleConfig(wave=32, top_m=4))``, K1's path
    ``run_cycle(snap, extra_mask=..., extra_scores=...)`` with extra scores
    up to 2^31 (and the wave request on them, which K1 also takes); the
-   ``wave_headline`` and ``dense_headline`` lines carry each cluster plan
-   (cluster size, shared bytes per CTA, occupancy at 8 and 16 CTAs) and
-   K3's phase-A, merge and phase-B microseconds per round, and K1's
-   microseconds per pod step in Filter/Score, barrier and merge, from the
-   instrumented builds of the same sources;
+   ``headline``, ``wave_headline`` and ``dense_headline`` lines carry each
+   cluster plan (cluster size, shared bytes per CTA, occupancy at 8 and 16
+   CTAs), K2's and K1's microseconds per pod step in Filter/Score,
+   staging, barrier and merge, and K3's phase-A, merge and phase-B
+   microseconds per round, from the instrumented builds of the same
+   sources; the ``headline`` line also carries K1's kernel time on the
+   same default inputs, which K2 must not exceed for the ladder's K2-first
+   order to hold;
 5. the reference anchors: the digest of the per-pod (K2 and K1) and of the
    wave cycle on a fixed mid-size snapshot against ``harness/anchor.py``'s
    constant, and the wave cycle's rounds against the reference kernel's,
@@ -296,25 +302,25 @@ def wave_phase_split(inp, cfg):
             "leader_cycles_per_us": total / us}
 
 
-def dense_pod_split(inp, cfg):
-    """K1's pod step split, from one run of the instrumented build of its
-    source: rank 0's clock64 cycles of quota and Filter/Score, of staging
+def pod_split(kernel, counters, inp, cfg):
+    """K1's or K2's pod step split, from one run of the instrumented build
+    of its source (``kernel``, its wrapper; ``counters``, its counter
+    read): rank 0's clock64 cycles of quota and Filter/Score, of staging
     the next pod, of the warp reduction and cluster barrier, and of the
     merge and Reserve split the run's CUDA-event time over the valid
     pods."""
     import torch
 
     from koordinator_tpu_torch import _build
-    from koordinator_tpu_torch.solver import dense
 
     def run():
-        return dense.cycle_dense_cuda(inp, cfg, defines=_build.PHASE_CLOCK)
+        return kernel(inp, cfg, defines=_build.PHASE_CLOCK)
 
     run()
     torch.cuda.synchronize()
-    dense.phase_cycles()  # drop the warm-up's counts
+    counters()  # drop the warm-up's counts
     ms, _ = timed_once(run)
-    parts = dense.phase_cycles()
+    parts = counters()
     pods = int((inp.pvalid != 0).sum())
     total = max(sum(parts), 1)
     us = ms * 1e3
@@ -475,8 +481,9 @@ def main() -> int:
         if got.path != "cuda":
             raise AssertionError(f"{name}: kernel path not taken ({got.path})")
         assert_same(name, got, want)
+        inp_w = wide.prepare_wide_inputs(snap, cfg)
         plans = {"K1": dense.cycle_plan(dense.prepare_cycle_inputs(snap, cfg)),
-                 "K3": wide.wave_plan(wide.prepare_wide_inputs(snap, cfg), 32, 4)}
+                 "K2": wide.wide_plan(inp_w), "K3": wide.wave_plan(inp_w, 32, 4)}
         for kernel, plan in plans.items():
             if bool(plan["resident"]) != resident:
                 raise AssertionError(f"{name}: {kernel} plan {plan}, want resident={resident}")
@@ -488,7 +495,8 @@ def main() -> int:
                 rounds.append(int(res.rounds))
         print(f"parity {name}: K1, K2, K3 exact, {int((got.assignment >= 0).sum())}/"
               f"{snap.num_pods} placed on {snap.num_nodes} nodes, K3 rounds (8,2) {rounds[0]} "
-              f"(32,4) {rounds[1]}; K1 plan {plans['K1']}; K3 plan {plans['K3']}")
+              f"(32,4) {rounds[1]}; K1 plan {plans['K1']}; K2 plan {plans['K2']}; "
+              f"K3 plan {plans['K3']}")
     phase_done("3_parity")
 
     # phase 4: the headline snapshot
@@ -539,12 +547,18 @@ def main() -> int:
     k2_ms, k2_plain_ms, k2_err = kernel_vs_plain(
         "K2", wide.cycle_wide_cuda, wide.cycle_wide_reference, inp_2, cfg)
     k2_bound, k2_bound_by = cycle_bound_ms(inp_2)
+    # K1 alone on the same default inputs: the rung K2 runs before
+    inp_1 = dense.prepare_cycle_inputs(snap, cfg)
+    k1_no_extras_ms, _ = cuda_time(lambda: dense.cycle_dense_cuda(inp_1, cfg))
     print(json.dumps({"headline": {
         "path": "run_cycle(snap)", "kernel": "cycle_wide", "snapshot": snapshot_desc,
         "assigned": int((result.assignment >= 0).sum()), "pods": snap.num_pods,
         "nodes": snap.num_nodes, "encode_s": encode_s, "cycle_ms_cuda_events": cycle_ev,
         "cycle_ms_host_wall": cycle_wall, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound, "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
+        "bound_ms": k2_bound, "k1_kernel_ms_same_inputs": k1_no_extras_ms,
+        "cluster": wide.wide_plan(inp_2),
+        "pod_split": pod_split(wide.cycle_wide_cuda, wide.wide_phase_cycles, inp_2, cfg),
+        "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
     }}))
 
     # K3's path: the wave-batched run_cycle
@@ -590,16 +604,14 @@ def main() -> int:
     k1_ms, k1_plain_ms, k1_err = kernel_vs_plain(
         "K1", dense.cycle_dense_cuda, dense.cycle_dense_reference, inp_x, cfg)
     k1_bound, k1_bound_by = cycle_bound_ms(inp_x)
-    # the kernel alone on the default inputs, the shape timed before extras
-    inp_1 = dense.prepare_cycle_inputs(snap, cfg)
-    k1_no_extras_ms, _ = cuda_time(lambda: dense.cycle_dense_cuda(inp_1, cfg))
     print(json.dumps({"dense_headline": {
         "path": "run_cycle(snap, extra_mask=90%, extra_scores in [0, 2^31))",
         "kernel": "cycle_dense", "snapshot": snapshot_desc,
         "assigned": int((result_x.assignment >= 0).sum()), "cycle_ms_cuda_events": x_ev,
         "cycle_ms_host_wall": x_wall, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound, "kernel_ms_without_extras": k1_no_extras_ms,
-        "cluster": dense.cycle_plan(inp_x), "pod_split": dense_pod_split(inp_x, cfg),
+        "cluster": dense.cycle_plan(inp_x),
+        "pod_split": pod_split(dense.cycle_dense_cuda, dense.phase_cycles, inp_x, cfg),
         "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
     }}))
     phase_done("4_headline")
@@ -628,7 +640,7 @@ def main() -> int:
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, k1_err, k1_ms,
          k1_plain_ms, k1_bound, k1_bound_by),
-        ("cycle_wide", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
+        ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_err, k2_ms,
          k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",

@@ -1,21 +1,26 @@
 """Plain models of the thread-block-cluster layer of the cycle kernels.
 
-``cluster_state.cuh`` and the two cluster kernels (``cycle_cuda.cu``, K1;
-``cycle_wide_cuda.cu wave_cycle_kernel``, K3) split the nodes into C
-contiguous slices, one per CTA, and rebuild global results from per-slice
-ones.  This module states the same algorithms in Python, step for step, so
-that the CPU tests can hold them against the plain versions they must
-equal:
+``cluster_state.cuh`` and the cluster kernels (``cycle_cuda.cu``, K1 and
+K2, the per-pod cycle in int64 and int32; ``cycle_wide_cuda.cu``, K3, the
+wave cycle) split the nodes into C contiguous slices, one per CTA, and
+rebuild global results from per-slice ones.  This module states the same
+algorithms in Python, step for step, so that the CPU tests can hold them
+against the plain versions they must equal:
 
 * ``slices``: the node slice of each CTA;
 * ``sliced_top_m``: K3's phase A and merge (each slice's top-M by chunked
   warp-argmax passes, then the merge of the C lists by their heads), which
   must equal ``wide._top_m``;
-* ``cluster_argmax``: K1's per-slice argmax seeded at the slice's lowest
-  index and its merge in rank order, which must equal the global argmax;
-* ``magic``/``div_magic``, ``div_i32``, ``floordiv_i64``: the division by
-  an invariant divisor through a multiply-and-shift reciprocal, which must
-  equal the plain division on every operand.
+* ``cluster_argmax``: the per-pod kernels' per-slice argmax seeded at the
+  slice's lowest index and its merge in rank order, which must equal the
+  global argmax;
+* ``magic``/``div_magic``, ``div_i32``, ``floordiv_i32``,
+  ``floordiv_i64``: the division by an invariant divisor through a
+  multiply-and-shift reciprocal, which must equal the plain division on
+  every operand;
+* ``least_requested_i32``/``most_requested_i32`` and their int64
+  counterparts: the per-pod kernels' scores, which must equal
+  ``ops/scoring.py``'s.
 
 Nothing on the card's path calls these models.
 """
@@ -101,25 +106,29 @@ def sliced_top_m(scores, m: int, cluster: int):
     return out_s, out_i
 
 
-def slice_partial(masked: Sequence[int], feasible: Sequence[bool], lo: int, hi: int):
-    """One slice's (best, index, any) as K1 reduces it: seeded with the
-    lowest owned index at INT64_MIN (INT_MAX for an empty slice), nodes in
-    ascending order, a strictly greater score replacing the best."""
-    best, idx = I64_MIN, lo if lo < hi else 2**31 - 1
+def slice_partial(masked: Sequence[int], feasible: Sequence[bool], lo: int, hi: int,
+                  sentinel: int = I64_MIN):
+    """One slice's (best, index, any) as K1 (``sentinel`` INT64_MIN) and K2
+    (INT_MIN) reduce it: seeded with the lowest owned index at the sentinel
+    (INT_MAX for an empty slice), nodes in ascending order, a strictly
+    greater score replacing the best."""
+    best, idx = sentinel, lo if lo < hi else 2**31 - 1
     for n in range(lo, hi):
         if feasible[n] and masked[n] > best:
             best, idx = masked[n], n
     return best, idx, any(feasible[lo:hi])
 
 
-def cluster_argmax(masked: Sequence[int], feasible: Sequence[bool], cluster: int):
-    """K1's choice for one pod: the slice partials merged in rank order
-    (lexicographic max score, min index; any = OR); -1 when no node is
-    feasible.  Equals the argmax of where(feasible, score, INT64_MIN) with
-    the lowest index on ties."""
-    best, idx, anyf = I64_MIN, 2**31 - 1, False
+def cluster_argmax(masked: Sequence[int], feasible: Sequence[bool], cluster: int,
+                   sentinel: int = I64_MIN):
+    """The per-pod kernels' choice for one pod: the slice partials merged in
+    rank order (lexicographic max score, min index; any = OR); -1 when no
+    node is feasible.  Equals the argmax of where(feasible, score,
+    ``sentinel``) with the lowest index on ties, for every feasible score
+    at or above the sentinel."""
+    best, idx, anyf = sentinel, 2**31 - 1, False
     for lo, hi in slices(len(masked), cluster):
-        b, i, a = slice_partial(masked, feasible, lo, hi)
+        b, i, a = slice_partial(masked, feasible, lo, hi, sentinel)
         if (b, -i) > (best, -idx):
             best, idx = b, i
         anyf = anyf or a
@@ -161,13 +170,22 @@ def wrap(x: int, bits: int) -> int:
 
 
 def div_i32(x: int, d: int) -> int:
-    """The int32 kernels' ``x / d`` (truncating) as the wave kernel takes
-    it: the reciprocal for x >= 0 and d > 0, else the plain division."""
+    """The wave kernel's ``x / d`` (truncating): the reciprocal for x >= 0
+    and d > 0, else the plain division."""
     if x >= 0 and d > 0:
         m, l = magic(d, 32)
         return div_magic(x, m, l, 32)
     q = abs(x) // abs(d)
     return q if (x >= 0) == (d > 0) else -q
+
+
+def floordiv_i32(x: int, d: int) -> int:
+    """The int32 per-pod kernel's floordiv(x, d): the reciprocal for x >= 0
+    and d > 0, else the plain floor division."""
+    if x >= 0 and d > 0:
+        m, l = magic(d, 32)
+        return div_magic(x, m, l, 32)
+    return x // d
 
 
 def floordiv_i64(x: int, d: int) -> int:
@@ -191,3 +209,18 @@ def most_requested_i64(t: int, cap: int) -> int:
     if cap == 0:
         return 0
     return floordiv_i64(wrap(min(t, cap) * 100, 64), cap)
+
+
+def least_requested_i32(t: int, cap: int) -> int:
+    """K2's least-requested score: the int32 product, floored by the
+    reciprocal (no product wraps inside ``check_i32_bounds``)."""
+    if cap == 0 or t > cap:
+        return 0
+    return floordiv_i32(wrap((cap - t) * 100, 32), cap)
+
+
+def most_requested_i32(t: int, cap: int) -> int:
+    """K2's most-requested score, as ``least_requested_i32``."""
+    if cap == 0:
+        return 0
+    return floordiv_i32(wrap(min(t, cap) * 100, 32), cap)

@@ -1,6 +1,7 @@
-// The thread-block-cluster layer shared by the cluster cycle kernels
-// (cycle_cuda.cu: K1, the int64 cycle; cycle_wide_cuda.cu: K3, the wave
-// cycle).  Header only; each source includes it and compiles on its own.
+// The thread-block-cluster layer shared by the cycle kernels (cycle_cuda.cu:
+// K1 and K2, the per-pod cycle in int64 and in int32; cycle_wide_cuda.cu:
+// K3, the wave cycle).  Header only; each source includes it and compiles
+// on its own.
 //
 // One cycle runs as one cluster of C CTAs (C = 16, else 8: see
 // plan_cluster).  CTA k owns the contiguous node slice [k*S, min((k+1)*S,
@@ -91,7 +92,7 @@ __device__ __forceinline__ uint64_t div_u64(uint64_t n, uint64_t m, uint8_t l) {
   return (t + ((n - t) >> (l > 0 ? 1 : 0))) >> (l > 0 ? l - 1 : 0);
 }
 
-// x / d, truncating (the int32 kernels' plain "/")
+// x / d, truncating (the wave kernel's plain "/")
 __device__ __forceinline__ int32_t div_i32(int32_t x, int32_t d, uint32_t m, uint8_t l) {
   if (x >= 0 && d > 0) return (int32_t)div_u32((uint32_t)x, m, l);
   return x / d;
@@ -104,10 +105,16 @@ __device__ __forceinline__ int64_t floordiv_plain(int64_t a, int64_t b) {
   return q;
 }
 
-// floor(x / d) (the int64 kernel's floordiv)
-__device__ __forceinline__ int64_t floordiv_i64(int64_t x, int64_t d, uint64_t m, uint8_t l) {
+// floor(x / d), the per-pod kernels' floordiv in either width (the int32
+// operands' plain floor division is taken in int64: INT_MIN / -1 fits)
+__device__ __forceinline__ int64_t floordiv(int64_t x, int64_t d, uint64_t m, uint8_t l) {
   if (x >= 0 && d > 0) return (int64_t)div_u64((uint64_t)x, m, l);
   return floordiv_plain(x, d);
+}
+
+__device__ __forceinline__ int32_t floordiv(int32_t x, int32_t d, uint32_t m, uint8_t l) {
+  if (x >= 0 && d > 0) return (int32_t)div_u32((uint32_t)x, m, l);
+  return (int32_t)floordiv_plain(x, d);
 }
 
 template <typename T> struct Recip;

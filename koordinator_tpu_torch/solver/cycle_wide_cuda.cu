@@ -1,33 +1,26 @@
-// The int32 Assign cycle kernels for Hopper (sm_90a): the per-pod wide
-// cycle (K2) and the wave-batched cycle (K3), one launch per cycle each.
+// The wave-batched int32 Assign cycle kernel for Hopper (sm_90a), K3, one
+// launch per cycle.
 //
-// Replace the TPU kernels koordinator_tpu/solver/pallas_cycle.py
-// _cycle_kernel (wide_cycle_kernel here) and _wave_cycle_kernel
-// (wave_cycle_kernel here), both launched by _run_cycle.  They compute what
-// those kernels compute, in 32-bit integers as they do.  They do not copy
-// the TPU kernels' lane packing or block structure; the 128-pod block
-// survives only where it sets the wave kernel's round count (a wave never
-// crosses a block end).
+// Replaces the TPU kernel koordinator_tpu/solver/pallas_cycle.py
+// _wave_cycle_kernel (wave_cycle_kernel here), launched by _run_cycle at
+// wave > 1.  It computes what that kernel computes, in 32-bit integers as
+// it does.  It does not copy the TPU kernel's lane packing or block
+// structure; the 128-pod block survives only where it sets the round count
+// (a wave never crosses a block end).  The same file's per-pod kernel at
+// wave 0 (_cycle_kernel, K2) is cycle_cuda.cu's int32 instantiation.
 //
 // Arithmetic.  Every score is exact int32 with truncating division on
-// non-negative operands, which is floor division there.  The wrappers take
+// non-negative operands, which is floor division there.  The wrapper takes
 // only snapshots that check_i32_bounds admits (node values below 2^31 /
 // 100, quota rows with room for every request) and extra scores below
 // 2^29, so no intermediate overflows: (cap - t) * 100 and min(t, cap) * 100
-// stay below 2^31.  The TPU kernels' f32-reciprocal division exists
+// stay below 2^31.  The TPU kernel's f32-reciprocal division exists
 // because the TPU's vector unit has no integer divide, and this card has
 // none either: nvcc expands an int32 "/" into a sequence of about 20
-// instructions.  K2 pays it; K3 divides by cap = alloc[r, n] through one
+// instructions.  K3 divides by cap = alloc[r, n] through one
 // multiply-and-shift reciprocal per (r, n) built once per cycle
 // (cluster_state.cuh), exact, and by the plain "/" for any operand the
 // fast form does not take.
-//
-// wide_cycle_kernel (K2): one CTA of 1024 threads; thread t owns the nodes
-// n == t (mod 1024).  Per pod: every thread filters and scores its nodes,
-// a block reduction finds the lexicographic (max score, min index), the
-// owner of the chosen node and thread 0 (quota) commit, and one
-// __syncthreads orders the next pod after this Reserve.  Bound on this
-// card by the pods' sequential chain on one SM (PERF.md).
 //
 // wave_cycle_kernel (K3): one thread-block cluster of C CTAs (16 on an
 // H100, else 8) of 512 threads; CTA k owns the node slice [k*S, (k+1)*S)
@@ -78,17 +71,16 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxResources = 32;
+using koord::kFlagFresh;
+using koord::kFlagOk;
+using koord::kFlagProdOk;
+using koord::kFull;
+using koord::kMaxResources;
+using koord::take_better;
+using koord::warp_best;
+
 constexpr int kBlock = 128;  // pod block of the TPU kernel's grid
 constexpr int kMaxLanes = 128;  // cap of W and M
-constexpr unsigned kFull = 0xffffffffu;
-
-// node flag bits (solver/dense.py FLAG_*)
-constexpr unsigned char kFlagOk = 1;      // valid & LoadAware default mask
-constexpr unsigned char kFlagProdOk = 2;  // valid & LoadAware prod mask
-constexpr unsigned char kFlagFresh = 4;   // NodeMetric fresh
 
 struct WideParams {
   int P, N, R;
@@ -113,176 +105,6 @@ struct WideParams {
   int32_t* nest;          // [R, N] in/out
   int32_t* quse;          // [Q, R] in/out
 };
-
-__device__ __forceinline__ int32_t least_requested(int32_t t, int32_t cap) {
-  if (cap == 0 || t > cap) return 0;
-  return (cap - t) * 100 / cap;
-}
-
-__device__ __forceinline__ int32_t most_requested(int32_t t, int32_t cap) {
-  if (cap == 0) return 0;
-  return (t < cap ? t : cap) * 100 / cap;
-}
-
-// lexicographic (max score, min index)
-__device__ __forceinline__ void take_better(int32_t& best, int& idx,
-                                            int32_t ob, int oi) {
-  if (ob > best || (ob == best && oi < idx)) {
-    best = ob;
-    idx = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_best(int32_t& best, int& idx) {
-  for (int off = 16; off > 0; off >>= 1) {
-    take_better(best, idx, __shfl_xor_sync(kFull, best, off),
-                __shfl_xor_sync(kFull, idx, off));
-  }
-}
-
-// ------------------------------------------------------------------- K2
-
-// Filter and Score of pod p (queue slot) on node n against the current
-// node state: the score, or INT_MIN when the node fails Fit on a requested
-// resource, its LoadAware flag or the extra mask.  Pod validity and quota
-// are node-invariant and checked by the callers.  s_w: [2][R] weights.
-__device__ int32_t node_score(const WideParams& c, int p, int n, bool prod,
-                              const int32_t (*s_w)[kMaxResources]) {
-  const int N = c.N, R = c.R;
-  const unsigned char f = c.flags[n];
-  if (!(f & (prod ? kFlagProdOk : kFlagOk))) return INT_MIN;
-  const int32_t* req = c.preq + (size_t)p * R;
-  for (int r = 0; r < R; ++r) {
-    const int32_t rq = req[r];
-    if (rq > 0 && c.nreq[(size_t)r * N + n] + rq > c.alloc[(size_t)r * N + n]) {
-      return INT_MIN;
-    }
-  }
-  int32_t total = 0;
-  if (c.xcomb != nullptr) {
-    const int32_t x = c.xcomb[(size_t)p * N + n];
-    if (x == INT_MIN) return INT_MIN;
-    total = x;
-  }
-  if (c.enable_fit && c.fit_wsum != 0) {
-    const int32_t* sreq = c.psreq + (size_t)p * R;
-    int32_t acc = 0;
-    for (int r = 0; r < R; ++r) {
-      const int32_t w = s_w[0][r];
-      if (w == 0) continue;
-      const size_t i = (size_t)r * N + n;
-      const int32_t t = c.nreq[i] + sreq[r];
-      acc += (c.most_allocated ? most_requested(t, c.alloc[i])
-                               : least_requested(t, c.alloc[i])) * w;
-    }
-    total += c.fit_pw * (acc / c.fit_wsum);
-  }
-  if (c.enable_la && c.la_wsum != 0 && (f & kFlagFresh)) {
-    const int32_t* est = c.pest + (size_t)p * R;
-    const int32_t* usage = prod ? c.uprod : c.usage;
-    int32_t acc = 0;
-    for (int r = 0; r < R; ++r) {
-      const int32_t w = s_w[1][r];
-      if (w == 0) continue;
-      const size_t i = (size_t)r * N + n;
-      acc += least_requested(usage[i] + c.nest[i] + est[r], c.alloc[i]) * w;
-    }
-    total += c.la_pw * (acc / c.la_wsum);
-  }
-  return total;
-}
-
-__device__ __forceinline__ void load_weights(const WideParams& c,
-                                             int32_t (*s_w)[kMaxResources]) {
-  if (threadIdx.x < c.R) {
-    s_w[0][threadIdx.x] = c.weights[threadIdx.x];
-    s_w[1][threadIdx.x] = c.weights[c.R + threadIdx.x];
-  }
-  __syncthreads();
-}
-
-// ElasticQuota admission of pod p against the live quota row, by the
-// calling warp's lanes (one per resource); uniform across the warp.
-__device__ __forceinline__ bool quota_blocked_warp(const WideParams& c, int p,
-                                                   int lane) {
-  const int qid = c.pqid[p];
-  if (qid < 0) return false;
-  bool viol = false;
-  if (lane < c.R) {
-    const size_t q = (size_t)qid * c.R + lane;
-    viol = c.qlim[q] && c.quse[q] + c.preq[(size_t)p * c.R + lane] > c.qrt[q];
-  }
-  return __any_sync(kFull, viol);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) wide_cycle_kernel(WideParams c) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int N = c.N, R = c.R;
-  __shared__ int32_t s_w[2][kMaxResources];
-  __shared__ int32_t s_best[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ int s_blocked;
-  load_weights(c, s_w);
-
-  for (int p = 0; p < c.P; ++p) {
-    if (!c.pvalid[p]) {  // uniform across the block
-      if (tid == 0) c.chosen[p] = -1;
-      continue;
-    }
-    if (warp == 0) {
-      const bool blocked = quota_blocked_warp(c, p, lane);
-      if (lane == 0) s_blocked = blocked;
-    }
-    __syncthreads();
-    const bool prod = c.pprod[p] != 0;
-    // argmax over ALL nodes of where(feasible, score, INT_MIN), first index
-    // on ties: start from the lowest owned index at INT_MIN
-    int32_t best = INT_MIN;
-    int best_idx = tid < N ? tid : INT_MAX;
-    if (!s_blocked) {
-      for (int n = tid; n < N; n += kThreads) {
-        const int32_t s = node_score(c, p, n, prod, s_w);
-        if (s > best) {  // n ascends, so ties keep the lower index
-          best = s;
-          best_idx = n;
-        }
-      }
-    }
-    warp_best(best, best_idx);
-    if (lane == 0) {
-      s_best[warp] = best;
-      s_idx[warp] = best_idx;
-    }
-    __syncthreads();
-    best = s_best[lane];
-    best_idx = s_idx[lane];
-    warp_best(best, best_idx);
-
-    // Reserve (feasible scores are > INT_MIN: extra scores are < 2^29)
-    const int chosen = best > INT_MIN ? best_idx : -1;
-    if (tid == 0) c.chosen[p] = chosen;
-    if (chosen >= 0) {
-      if (chosen % kThreads == tid) {
-        for (int r = 0; r < R; ++r) {
-          c.nreq[(size_t)r * N + chosen] += c.preq[(size_t)p * R + r];
-          c.nest[(size_t)r * N + chosen] += c.pest[(size_t)p * R + r];
-        }
-      }
-      const int qid = c.pqid[p];
-      if (qid >= 0 && tid == 0) {
-        for (int r = 0; r < R; ++r) {
-          c.quse[(size_t)qid * R + r] += c.preq[(size_t)p * R + r];
-        }
-      }
-    }
-    // the next pod reads this pod's commits and reuses s_*
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------------------------------- K3
 
 constexpr int kWaveThreads = 512;
 constexpr int kWaveWarps = kWaveThreads / 32;
@@ -345,8 +167,10 @@ __device__ __forceinline__ int32_t most_recip(int32_t t, int32_t cap, uint32_t m
   return koord::div_i32((t < cap ? t : cap) * 100, cap, m, l);
 }
 
-// node_score on a view of the node state, with the pod's rows and active
-// resources given and the divisions by reciprocals: the same value.
+// Filter and Score of pod p on node n of a view of the node state, with the
+// pod's rows and active resources given: the score, or INT_MIN when the
+// node fails Fit on a requested resource, its LoadAware flag or the extra
+// mask.  Pod validity and quota are node-invariant and checked apart.
 __device__ __forceinline__ int32_t view_score(const WideParams& c,
                                               const koord::NodeView<int32_t>& v, int p, int n,
                                               bool prod, const int32_t* req, const int32_t* sreq,
@@ -892,36 +716,9 @@ cudaError_t wave_plan_for(int N, int R, int Q, int W, int M, int uprod_shared,
   return cudaSuccess;
 }
 
-int check_dims(int P, int N, int R) {
-  if (P < 0 || N < 1 || R < 1 || R > kMaxResources || (int64_t)N * R >= INT_MAX) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
-}
-
 }  // namespace
 
-// Plain C entry points, bound with ctypes (solver/wide.py).  The launches
-// run on ``stream`` and return the cudaError_t of the launch (0 = success).
-extern "C" int koord_wide_cycle_launch(
-    int P, int N, int R,
-    const int32_t* preq, const int32_t* psreq, const int32_t* pest,
-    const int32_t* pqid, const uint8_t* pvalid, const uint8_t* pprod,
-    const int32_t* alloc, const int32_t* usage, const int32_t* uprod,
-    const uint8_t* flags, const int32_t* qrt, const uint8_t* qlim,
-    const int32_t* weights, int32_t fit_wsum, int32_t la_wsum,
-    int32_t fit_pw, int32_t la_pw, int most_allocated, int enable_fit,
-    int enable_la, const int32_t* xcomb, int32_t* chosen, int32_t* nreq,
-    int32_t* nest, int32_t* quse, void* stream) {
-  if (int err = check_dims(P, N, R)) return err;
-  WideParams c{P, N, R, preq, psreq, pest, pqid, pvalid, pprod,
-               alloc, usage, uprod, flags, qrt, qlim, weights,
-               fit_wsum, la_wsum, fit_pw, la_pw,
-               most_allocated, enable_fit, enable_la,
-               xcomb, chosen, nreq, nest, quse};
-  wide_cycle_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(c);
-  return (int)cudaGetLastError();
-}
+// Plain C entry points, bound with ctypes (solver/wide.py).
 
 // The wave kernel's cluster plan for this shape: out[0..5] = C, S,
 // resident, dynamic shared bytes per CTA, cudaOccupancyMaxActiveClusters
@@ -941,8 +738,9 @@ extern "C" int koord_wave_plan(int N, int R, int Q, int wave, int top_m, int upr
   return 0;
 }
 
-// ``magic``/``shift``: [R, N] scratch for the reciprocals of a slice that
-// is not resident.
+// Launch the wave cycle on ``stream`` and return the cudaError_t of the
+// launch (0 = success).  ``magic``/``shift``: [R, N] scratch for the
+// reciprocals of a slice that is not resident.
 extern "C" int koord_wave_cycle_launch(
     int P, int N, int R, int Q,
     const int32_t* preq, const int32_t* psreq, const int32_t* pest,
@@ -954,8 +752,8 @@ extern "C" int koord_wave_cycle_launch(
     int enable_la, const int32_t* xcomb, int32_t* chosen, int32_t* nreq,
     int32_t* nest, int32_t* quse, int wave, int top_m, uint32_t* magic,
     uint8_t* shift, int32_t* rounds, void* stream) {
-  if (int err = check_dims(P, N, R)) return err;
-  if (Q < 0 || wave < 1 || wave > kMaxLanes || top_m < 1 || top_m > kMaxLanes) {
+  if (P < 0 || N < 1 || R < 1 || R > kMaxResources || (int64_t)N * R >= INT_MAX ||
+      Q < 0 || wave < 1 || wave > kMaxLanes || top_m < 1 || top_m > kMaxLanes) {
     return (int)cudaErrorInvalidValue;
   }
   const int uprod_shared = uprod == usage;

@@ -27,10 +27,11 @@ extraction) is a VMEM-layout device and is not carried over.
   the nodes committed to earlier in the round.  ``rounds`` is the sum over
   blocks.
 
-On CUDA tensors the wrappers launch the kernels in ``cycle_wide_cuda.cu``
-(one launch per cycle each: one CTA for the per-pod kernel, one
-thread-block cluster for the wave kernel); on CPU tensors they run the
-plain versions.
+On CUDA tensors the wrappers launch the kernels, one launch of one
+thread-block cluster per cycle each: the per-pod kernel is the int32
+instantiation of the dense kernel's templated body (``cycle_cuda.cu``,
+``CYCLE_WIDE_SOURCE``), the wave kernel lives in ``cycle_wide_cuda.cu``
+(``KERNEL_SOURCE``); on CPU tensors they run the plain versions.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ from koordinator_tpu_torch.solver.greedy import (
     step_feasible_scores,
 )
 
-KERNEL_SOURCE = "solver/cycle_wide_cuda.cu"
+KERNEL_SOURCE = "solver/cycle_wide_cuda.cu"  # the wave kernel
+# the per-pod kernel: the int32 instantiation of the dense kernel's body
+CYCLE_WIDE_SOURCE = dense.KERNEL_SOURCE
 
 I32_MIN = torch.iinfo(torch.int32).min
 # extra scores ride xcomb as int32 next to the I32_MIN sentinel
@@ -315,18 +318,19 @@ def wave_cycle_reference(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: i
 
 
 _COMMON_ARGTYPES = (
-    [ctypes.c_int] * 3  # P, N, R
+    [ctypes.c_int] * 4  # P, N, R, Q
     + [ctypes.c_void_p] * 13  # preq .. weights
     + [ctypes.c_int] * 4  # fit_wsum, la_wsum, fit_pw, la_pw
     + [ctypes.c_int] * 3  # most_allocated, enable_fit, enable_la
     + [ctypes.c_void_p] * 5  # xcomb, chosen, nreq, nest, quse
 )
-_WIDE_ARGTYPES = _COMMON_ARGTYPES + [ctypes.c_void_p]  # stream
+_WIDE_ARGTYPES = _COMMON_ARGTYPES + [ctypes.c_void_p] * 3  # magic, shift, stream
 _WAVE_ARGTYPES = (
-    _COMMON_ARGTYPES[:3] + [ctypes.c_int] + _COMMON_ARGTYPES[3:]  # P, N, R, Q, ...
+    _COMMON_ARGTYPES
     + [ctypes.c_int] * 2  # wave, top_m
     + [ctypes.c_void_p] * 4  # magic, shift, rounds, stream
 )
+_WIDE_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _WAVE_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -345,7 +349,7 @@ def _checked_common(inp: CycleInputs, cfg: CycleConfig, what: str):
     )
     fit_wsum, la_wsum = dense.weight_sums(cfg)
     args = (
-        P, N, R,
+        P, N, R, inp.qrt.shape[0],
         inp.preq.data_ptr(), inp.psreq.data_ptr(), inp.pest.data_ptr(),
         inp.qid.data_ptr(), inp.pvalid.data_ptr(), inp.pprod.data_ptr(),
         inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.uprod.data_ptr(),
@@ -359,18 +363,42 @@ def _checked_common(inp: CycleInputs, cfg: CycleConfig, what: str):
     return outs, args
 
 
-def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig):
+def wide_plan(inp: CycleInputs) -> dict:
+    """The cluster plan the per-pod kernel takes for ``inp``
+    (``dense.read_plan``)."""
+    R, N = inp.alloc.shape
+    fn = _build.entry(CYCLE_WIDE_SOURCE, "koord_wide_plan", _WIDE_PLAN_ARGTYPES)
+    with torch.cuda.device(inp.alloc.device):
+        return dense.read_plan(fn, N, R, inp.qrt.shape[0], dense.uprod_shared(inp))
+
+
+def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     """Launch the per-pod wide kernel on the current stream; same outputs
-    as ``cycle_wide_reference``.  Raises on a bad input or a refused launch."""
+    as ``cycle_wide_reference``.  Raises on a bad input or a refused launch.
+    ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
+    same source (``wide_phase_cycles``)."""
     outs, args = _checked_common(inp, cfg, "cycle_wide_cuda")
-    fn = _build.entry(KERNEL_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES)
     dev = inp.alloc.device
+    R, N = inp.alloc.shape
+    fn = _build.entry(CYCLE_WIDE_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES, defines)
+    magic, shift = dense.reciprocal_tables(wide_plan(inp), R, N, torch.int32, dev)
     with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*args, None if magic is None else magic.data_ptr(),
+                 None if shift is None else shift.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wide cycle kernel launch failed: cudaError {err}")
     LAUNCHES["cycle_wide"] += 1
     return outs
+
+
+def wide_phase_cycles():
+    """The instrumented build's clock64 counters of the per-pod kernel,
+    summed since the last read (reading resets them), as
+    ``dense.phase_cycles`` gives the dense kernel's: rank 0's pod-step
+    cycles of quota and Filter/Score, of staging the next pod, of the
+    reduction and barrier, and of the merge and Reserve."""
+    return _build.read_counters(CYCLE_WIDE_SOURCE, "koord_wide_phase_cycles", 4)
 
 
 def wave_plan(inp: CycleInputs, wave: int, top_m: int) -> dict:
@@ -398,7 +426,7 @@ def wave_cycle_cuda(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: int, d
     rounds = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = _build.entry(KERNEL_SOURCE, "koord_wave_cycle_launch", _WAVE_ARGTYPES, defines)
     with torch.cuda.device(dev):
-        err = fn(*args[:3], inp.qrt.shape[0], *args[3:], W, M,
+        err = fn(*args, W, M,
                  None if magic is None else magic.data_ptr(),
                  None if shift is None else shift.data_ptr(), rounds.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)

@@ -1,19 +1,22 @@
 """The thread-block-cluster layer of the port's cycle kernels, on the CPU.
 
-The cluster kernels (``solver/cycle_cuda.cu``, ``solver/cycle_wide_cuda.cu
-wave_cycle_kernel``) split the nodes into contiguous slices, one per CTA,
-and divide by reciprocals built once per cycle.  ``solver/cluster.py``
+The cluster kernels (``solver/cycle_cuda.cu``, the per-pod cycle in int64
+and int32; ``solver/cycle_wide_cuda.cu``, the wave cycle) split the nodes
+into contiguous slices, one per CTA, and divide by reciprocals built once
+per cycle.  ``solver/cluster.py``
 states those algorithms in Python; here they are held exactly against
 what they must reproduce:
 
 * the slice-and-merge top-M against ``wide._top_m`` (the plain version's
   frozen candidates, which the JAX wave kernel's pick loop gives);
 * the cluster argmax merge against the global argmax over
-  ``where(feasible, score, INT64_MIN)`` with the lowest index on ties;
+  ``where(feasible, score, sentinel)`` with the lowest index on ties, at
+  the int64 and the int32 sentinel;
 * the reciprocal division against Python's ``//`` (and C's truncation for
-  the int32 kernels), at boundary and seeded random operands;
+  the wave kernel), at boundary and seeded random operands, and the
+  per-pod kernels' scores against ``ops/scoring.py``;
 * the kernel build's digest, which must follow the shared header and the
-  ``-D`` defines.
+  ``-D`` defines, and the sources' launch and instrumentation layout.
 
 Inputs are made from seeds with numpy.  Every compared value is an
 integer: tolerance 0.
@@ -81,11 +84,11 @@ def test_slices_cover_the_nodes_in_order(n_nodes, c):
     assert all(hi - lo <= -(-n_nodes // c) for lo, hi in sl)
 
 
-def global_choice(masked, feasible):
+def global_choice(masked, feasible, sentinel=I64_MIN):
     """The plain version's argmax (dense.cycle_dense_reference)."""
     m = torch.tensor(masked, dtype=torch.int64)
     f = torch.tensor(feasible)
-    where = torch.where(f, m, torch.full_like(m, I64_MIN))
+    where = torch.where(f, m, torch.full_like(m, sentinel))
     return int(where.argmax()) if bool(f.any()) else -1
 
 
@@ -103,13 +106,20 @@ ARGMAX_CASES = {
 }
 
 
+@pytest.mark.parametrize("sentinel", [I64_MIN, I32_MIN], ids=["int64", "int32"])
 @pytest.mark.parametrize("case", sorted(ARGMAX_CASES))
 @pytest.mark.parametrize("n_nodes,c", [(5, 16), (37, 16), (128, 16), (250, 8), (2, 8)])
-def test_cluster_argmax_equals_the_global_argmax(case, n_nodes, c):
+def test_cluster_argmax_equals_the_global_argmax(case, n_nodes, c, sentinel):
+    """K1 (int64) and K2 (int32) reduce the same way; K2's scores are
+    clamped into int32, so its ``feasible_at_int64_min`` case is feasible
+    at INT_MIN."""
     rng = np.random.RandomState(n_nodes + c)
     for _ in range(4):
         masked, feasible = ARGMAX_CASES[case](rng, n_nodes)
-        assert cluster.cluster_argmax(masked, feasible, c) == global_choice(masked, feasible)
+        if sentinel == I32_MIN:
+            masked = [min(max(v, I32_MIN), 2**31 - 1) for v in masked]
+        assert (cluster.cluster_argmax(masked, feasible, c, sentinel)
+                == global_choice(masked, feasible, sentinel))
 
 
 def boundary_numerators(d, top):
@@ -155,6 +165,7 @@ def test_kernel_divisions_equal_the_plain_ones_on_signed_operands(seed):
         d = int(rng.choice([-7, -1, 1, 3, 100, int(rng.randint(1, 2**31))]))
         q = abs(x) // abs(d)
         assert cluster.div_i32(x, d) == (q if (x >= 0) == (d > 0) else -q)
+        assert cluster.floordiv_i32(x, d) == x // d
         x64 = int(rng.randint(-2**63, 2**63 - 1, dtype=np.int64))
         d64 = int(rng.choice([-5, 1, 7, int(rng.randint(1, 2**62, dtype=np.int64))]))
         assert cluster.floordiv_i64(x64, d64) == x64 // d64
@@ -181,10 +192,46 @@ def test_int64_scores_equal_the_plain_scores_with_wrapping_products(seed):
         assert cluster.most_requested_i64(t, cap) == wm, (t, cap)
 
 
+# K2's inputs: check_i32_bounds admits node values below 2^31 // 100
+I32_SCORED_LIMIT = 2**31 // 100
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_int32_scores_equal_the_plain_scores_on_the_int32_domain(seed):
+    """K2's least/most requested (int32 products, the reciprocal floor
+    division) equal the plain version's ``ops/scoring.py`` over the domain
+    ``check_i32_bounds`` admits: zero capacity, requests beyond capacity,
+    the largest admitted capacity and seeded random values."""
+    from koordinator_tpu_torch.ops.scoring import least_requested_score, most_requested_score
+
+    top = I32_SCORED_LIMIT - 1
+    assert wide.check_i32_bounds((top, 0, 0, 0))
+    assert not wide.check_i32_bounds((top + 1, 0, 0, 0))
+    rng = np.random.RandomState(seed)
+    caps = rng.randint(0, I32_SCORED_LIMIT, size=300).tolist()
+    ts = rng.randint(0, I32_SCORED_LIMIT, size=300).tolist()
+    for cap in (0, 1, 3, 100, top):
+        for t in (0, 1, cap - 1, cap, cap + 1, top, int(rng.randint(0, I32_SCORED_LIMIT))):
+            if t >= 0:
+                caps.append(cap)
+                ts.append(t)
+    want_least = least_requested_score(torch.tensor(ts), torch.tensor(caps)).tolist()
+    want_most = most_requested_score(torch.tensor(ts), torch.tensor(caps)).tolist()
+    for t, cap, wl, wm in zip(ts, caps, want_least, want_most):
+        assert cluster.least_requested_i32(t, cap) == wl, (t, cap)
+        assert cluster.most_requested_i32(t, cap) == wm, (t, cap)
+        # no product wraps inside the domain: the same as the int64 model
+        assert cluster.least_requested_i64(t, cap) == wl, (t, cap)
+
+
 @pytest.mark.parametrize("d,bits", [(0, 32), (2**31, 32), (-1, 64), (2**63, 64)])
 def test_magic_refuses_divisors_out_of_range(d, bits):
     with pytest.raises(ValueError):
         cluster.magic(d, bits)
+
+
+# every CUDA source of the port (K1 and K2 share the first)
+KERNEL_SOURCES = sorted({dense.KERNEL_SOURCE, wide.CYCLE_WIDE_SOURCE, wide.KERNEL_SOURCE})
 
 
 class TestBuildDigest:
@@ -206,8 +253,9 @@ class TestBuildDigest:
         flagged = _build.source_digest(src, _build.NVCC_FLAGS + ("-DKOORD_PHASE_CLOCK",))
         assert flagged not in (base, edited)
 
-    def test_instrumented_variant_is_compiled_out_of_the_main_build(self):
-        src = (_build.PACKAGE_DIR / wide.KERNEL_SOURCE).read_text()
+    @pytest.mark.parametrize("source", KERNEL_SOURCES)
+    def test_instrumented_variant_is_compiled_out_of_the_main_build(self, source):
+        src = (_build.PACKAGE_DIR / source).read_text()
         inside, timed = False, 0
         for line in src.splitlines():
             code = line.split("//")[0].strip()
@@ -222,14 +270,29 @@ class TestBuildDigest:
 
 
 def test_cluster_kernels_launch_one_cluster_and_keep_no_one_cta_body():
-    k1 = (_build.PACKAGE_DIR / dense.KERNEL_SOURCE).read_text()
+    on_disk = sorted(str(p.relative_to(_build.PACKAGE_DIR))
+                     for p in (_build.PACKAGE_DIR / "solver").glob("*.cu"))
+    assert on_disk == KERNEL_SOURCES
+    k12 = (_build.PACKAGE_DIR / dense.KERNEL_SOURCE).read_text()
     k3 = (_build.PACKAGE_DIR / wide.KERNEL_SOURCE).read_text()
     hdr = (_build.PACKAGE_DIR / "solver/cluster_state.cuh").read_text()
-    for src in (k1, k3):
+    for src in (k12, k3):
         assert "cudaLaunchKernelEx" in src
         assert "cluster_state.cuh" in src
     assert "cudaLaunchAttributeClusterDimension" in hdr
     assert "cudaOccupancyMaxActiveClusters" in hdr
-    assert "map_shared_rank" in k1 and "map_shared_rank" in hdr
-    # K2 alone keeps the one-CTA launch
-    assert k1.count("<<<") == 0 and k3.count("<<<") == 1
+    assert "map_shared_rank" in k12 and "map_shared_rank" in hdr
+    # no source of the port keeps a one-CTA launch
+    for path in _build.PACKAGE_DIR.rglob("*.cu*"):
+        assert "<<<" not in path.read_text(), path
+    # K1 and K2 are the two instantiations of one templated body, each
+    # entry launching it through the same cluster launch
+    assert k12.count("__global__") == 1
+    assert "launch<int64_t>(" in k12 and "launch<int32_t>(" in k12
+    for entry, kind in (("koord_cycle_launch", "int64_t"), ("koord_wide_cycle_launch", "int32_t")):
+        body = k12.split(f'extern "C" int {entry}(')[1].split("\n}\n")[0]
+        assert f"launch<{kind}>(" in body, entry
+    assert k12.count("cudaLaunchKernelEx(") == 1
+    # the one-CTA body and its private helpers are gone
+    for gone in ("wide_cycle_kernel", "node_score", "quota_blocked_warp", "load_weights"):
+        assert gone not in k12 and gone not in k3, gone

@@ -334,16 +334,42 @@ class TestWaveAssign:
 # ------------------------------------------ the int32 kernels' plain versions
 
 
+def identical_nodes_lists(nodes, pods):
+    """``nodes`` identical nodes and ``pods`` pods of three shapes: every
+    pod's scores tie across the nodes (``chip_smoke.identical_nodes_case``)."""
+    node_list = [{"name": f"same-{i}",
+                  "allocatable": {"cpu": "8000m", "memory": 32 << 30, "pods": 110}}
+                 for i in range(nodes)]
+    shapes = (("500m", 1 << 30), ("1500m", 2 << 30), ("250m", 512 << 20))
+    pod_list = [{"name": f"pod-{p}",
+                 "requests": {"cpu": shapes[p % 3][0], "memory": shapes[p % 3][1], "pods": 1}}
+                for p in range(pods)]
+    return node_list, pod_list, [], []
+
+
+# the cluster layer's shapes (``chip_smoke.cluster_cases``): fewer nodes
+# than CTAs, no multiple of the cluster size, ties across every slice border
+CLUSTER_RECIPES = {"five_nodes": (64, 5), "37_nodes": (300, 37)}
+
+
 def build_wide_case(name):
+    strategy = "MostAllocated" if name.endswith("_most_allocated") else "LeastAllocated"
+    base = name.removesuffix("_most_allocated")
     if name == "contention_tight_nodes":
         js, ts = encode_pair(_contention_tight_nodes())
     elif name == "quota_200x20":
         recipe = {"seed": 0, "pods": 200, "nodes": 20, "tenants": 16}
         js = jgen.quota_colocation_snapshot(**recipe)[0]
         ts = tgen.quota_colocation_snapshot(**recipe, device="cpu")[0]
+    elif base in CLUSTER_RECIPES:
+        pods, nodes = CLUSTER_RECIPES[base]
+        js = jgen.quota_colocation_snapshot(pods=pods, nodes=nodes)[0]
+        ts = tgen.quota_colocation_snapshot(pods=pods, nodes=nodes, device="cpu")[0]
+    elif base == "identical_40_nodes":
+        js, ts = encode_pair(identical_nodes_lists(40, 200), node_bucket=40)
     else:
         return build_case(name)
-    jcfg = jconfig.CycleConfig()
+    jcfg = jconfig.CycleConfig(fit_scoring_strategy=strategy)
     return js, ts, jcfg, port_config(jcfg), {}, {}
 
 
@@ -353,6 +379,9 @@ WIDE_RUNS = [
     (case, 1, 4) for case in (
         "quota_default", "most_allocated", "loadaware_disabled", "overload",
         "unpadded_buckets", "scarce_capacity", "extra_mask_and_scores", "extra_mask_only",
+        # the per-pod kernel's plain version on the cluster layer's shapes
+        "five_nodes", "37_nodes", "37_nodes_most_allocated", "identical_40_nodes",
+        "identical_40_nodes_most_allocated",
     )
 ] + [
     ("quota_default", 8, 2), ("quota_default", 32, 4), ("most_allocated", 8, 4),
@@ -693,9 +722,16 @@ class TestWideWrappers:
         assert inp.flags.dtype == torch.uint8
 
     def test_source_is_a_hand_written_sm90a_kernel(self):
-        src = (_build.PACKAGE_DIR / wide.KERNEL_SOURCE).read_text()
-        assert src.count("__global__") == 2
-        for entry in ("koord_wide_cycle_launch", "koord_wave_cycle_launch"):
-            assert f'extern "C" int {entry}' in src
-        for banned in ("cublas", "torch/", "cutlass", "thrust", "cub::"):
-            assert banned not in src.lower()
+        # the wave kernel has its own source; the per-pod kernel is the
+        # int32 instantiation of the dense kernel's templated body
+        for source, entries in (
+            (wide.KERNEL_SOURCE, ("koord_wave_plan", "koord_wave_cycle_launch")),
+            (wide.CYCLE_WIDE_SOURCE, ("koord_wide_plan", "koord_wide_cycle_launch")),
+        ):
+            src = (_build.PACKAGE_DIR / source).read_text()
+            assert src.count("__global__") == 1, source
+            for entry in entries:
+                assert f'extern "C" int {entry}' in src
+            for banned in ("cublas", "torch/", "cutlass", "thrust", "cub::"):
+                assert banned not in src.lower()
+        assert wide.CYCLE_WIDE_SOURCE == dense.KERNEL_SOURCE
