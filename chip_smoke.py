@@ -48,8 +48,30 @@ Phases (any failure raises and exits non-zero, printing no result):
    wave cycle on a fixed mid-size snapshot against ``harness/anchor.py``'s
    constant, and the wave cycle's rounds against the reference kernel's,
    both recomputed from the JAX reference by a CPU test;
-6. the seconds of each phase, a ``kernels`` JSON line, the card line, then
-   the result line.
+6. ``score_headline``: the Score RPC's device side on the headline snapshot,
+   under the default and the term configuration: ``score_cycle``, then
+   ``masked_top_k(k=32, hi=score_upper_bound(cfg))``, then the [P, 32]
+   readback, each timed (median of 7, CUDA events and host wall) with the
+   peak device memory; the card's (scores, feasible) equal the CPU path's
+   on 256 sampled pod rows, its top-k equals ``masked_top_k_host`` of its
+   own full readback, and at the anchor recipe both top-k digests equal
+   the JAX-derived constants;
+7. ``terms_cycle``: ``run_cycle`` under the term configuration at the
+   headline, which takes K2, and with ``wave=32, top_m=4``, which takes K3,
+   each exact against ``greedy_assign`` on the term extras and each kernel
+   against its plain version, no demotion and no other kernel; the cost of
+   ``term_extras`` apart; the term cycle's digest at the anchor recipe;
+8. ``incremental``: a seeded warm delta (64 dirty node rows, 16 dirty pod
+   rows) through ``apply_flat_delta``, then ``rescore_dirty``, equal bit for
+   bit to a full ``score_cycle`` of the updated snapshot, under both
+   configurations, each step timed;
+9. ``sparse``: the candidate engine at 2^21 nodes x 512 pods, width 256
+   (cold build on the pipelined route, a refresh after a 64-node delta,
+   ``score_candidates`` + ``sparse_top_k``, timed), and at 4,096 nodes its
+   top-k equal to the dense ``score_cycle`` + ``masked_top_k``, its refreshed
+   lists equal to a fresh build, and an overflowing width refused;
+10. the seconds of each phase, a ``kernels`` JSON line, the card line, then
+    the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -381,6 +403,258 @@ def cycle_bound_ms(inp, extra_out_bytes=0) -> tuple:
                   n_valid_pods * inp.alloc.shape[1] * per_cell)
 
 
+def map_snapshot(snap, fn):
+    """``snap`` with ``fn`` applied to every tensor (``.cpu()``,
+    ``.clone()``)."""
+    import torch
+
+    def table(t):
+        return dataclasses.replace(t, **{
+            f.name: fn(getattr(t, f.name)) for f in dataclasses.fields(t)
+            if isinstance(getattr(t, f.name), torch.Tensor)})
+
+    return dataclasses.replace(
+        snap, nodes=table(snap.nodes), pods=table(snap.pods), gangs=table(snap.gangs),
+        quotas=table(snap.quotas),
+        throughput=None if snap.throughput is None else fn(snap.throughput))
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def snapshot_bytes(snap) -> int:
+    """Bytes of the pod and node tables a Score reads once."""
+    n, p = snap.nodes, snap.pods
+    return tensor_bytes(n.allocatable, n.requested, n.usage, n.metric_fresh, n.valid,
+                        n.agg_usage, n.agg_fresh, n.prod_usage, n.accel_type,
+                        p.requests, p.estimated, p.priority_class, p.valid,
+                        p.workload_class, p.sensitivity, snap.throughput)
+
+
+def score_phase(card, label, snap, cfg, k, anchor_snap, anchor_digest):
+    """The ``score_headline`` entry of one configuration (phase 6)."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.harness.anchor import topk_digest
+    from koordinator_tpu_torch.solver import (
+        masked_top_k, masked_top_k_host, score_all, score_cycle, score_upper_bound,
+    )
+    from koordinator_tpu_torch.solver.incremental import _take_pods
+
+    hi = score_upper_bound(cfg)
+
+    def score_once():
+        scores, feasible = score_cycle(snap, cfg)
+        top_s, top_i = masked_top_k(scores, feasible, k=k, hi=hi)
+        return top_s.cpu(), top_i.cpu()
+
+    score_once()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    scores, feasible = score_cycle(snap, cfg)
+    top_s, top_i = masked_top_k(scores, feasible, k=k, hi=hi)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    steps = {
+        "score_cycle": cuda_time(lambda: score_cycle(snap, cfg)),
+        "masked_top_k": cuda_time(lambda: masked_top_k(scores, feasible, k=k, hi=hi)),
+        # masked_top_k's branch: one reduction and its host read
+        "in_bound_check": cuda_time(lambda: bool(
+            (((scores >= 0) & (scores <= hi)) | ~feasible).all())),
+        "readback": cuda_time(lambda: (top_s.cpu(), top_i.cpu())),
+        "score_whole": cuda_time(score_once),
+    }
+    # the card's cells against the CPU path on sampled pod rows, all columns
+    P = snap.pods.capacity
+    rows = np.sort(np.random.default_rng(0).choice(P, size=min(256, P), replace=False))
+    cpu_snap = map_snapshot(snap, lambda t: t.cpu())
+    cpu_rows = dataclasses.replace(
+        cpu_snap, pods=_take_pods(cpu_snap.pods, torch.from_numpy(rows)))
+    want_s, want_f = score_all(cpu_rows, cfg)
+    rows_d = torch.from_numpy(rows).to(scores.device)
+    if not (torch.equal(scores[rows_d].cpu(), want_s)
+            and torch.equal(feasible[rows_d].cpu(), want_f)):
+        raise AssertionError(f"score_headline {label}: card and CPU path differ")
+    host_s, host_i = masked_top_k_host(scores.cpu().numpy(), feasible.cpu().numpy(), k)
+    if not (np.array_equal(top_s.cpu().numpy(), host_s)
+            and np.array_equal(top_i.cpu().numpy(), host_i)):
+        raise AssertionError(f"score_headline {label}: top-k differs from the host twin")
+    a_s, a_f = score_cycle(anchor_snap, cfg)
+    digest = topk_digest(*(t.cpu() for t in masked_top_k(a_s, a_f, k=k, hi=hi)))
+    if digest != anchor_digest:
+        raise AssertionError(f"score_headline {label}: anchor top-k {digest} != {anchor_digest}")
+    bound_bytes = snapshot_bytes(snap) + tensor_bytes(scores, feasible)
+    return {
+        "path": "score_cycle + masked_top_k + readback", "config": label, "k": k, "hi": hi,
+        **{f"{name}_ms_cuda_events": ev for name, (ev, _) in steps.items()},
+        **{f"{name}_ms_host_wall": wall for name, (_, wall) in steps.items()},
+        "peak_device_bytes": peak, "feasible_cells": int(feasible.sum()),
+        "score_cycle_bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+        "score_cycle_bound_by": "bytes", "score_cycle_bytes": bound_bytes,
+        "timed_runs": TIMED_RUNS,
+        "parity": f"{len(rows)} sampled pod rows exact vs the CPU path; top-k exact vs "
+                  "masked_top_k_host of the full readback; anchor top-k digest matches",
+        "card": card,
+    }
+
+
+def incremental_phase(card, label, snap, cfg, seed):
+    """The ``incremental`` entry of one configuration (phase 8): a warm
+    delta of 64 node rows (the reference's probe rows) and 16 pod rows,
+    on a copy of ``snap``."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.solver import rescore_dirty, score_cycle
+    from koordinator_tpu_torch.solver.resident import apply_flat_delta
+
+    snap = map_snapshot(snap, lambda t: t.clone())
+    N, R = snap.nodes.requested.shape
+    n_real = snap.num_nodes
+    node_rows = np.unique((np.arange(64) * max(1, n_real // 64)) % n_real)
+    rng = np.random.default_rng(seed)
+    pod_rows = np.sort(rng.choice(snap.num_pods, size=16, replace=False))
+    alloc = snap.nodes.allocatable.cpu().numpy()
+    deltas = []  # (tensor, flat idx, values)
+    for field, cols, frac in (("requested", (0, 1), 0.5), ("usage", (0, 1), 0.9)):
+        idx = np.asarray([r * R + c for r in node_rows for c in cols], np.int64)
+        val = (alloc.reshape(-1)[idx] * rng.uniform(0, frac, len(idx))).astype(np.int64)
+        deltas.append((getattr(snap.nodes, field), idx, val))
+    idx = np.asarray([r * R for r in pod_rows], np.int64)
+    deltas.append((snap.pods.requests, idx, rng.choice([250, 1000, 8000], len(idx))))
+
+    scores, feasible = score_cycle(snap, cfg)
+
+    def apply():
+        for arr, i, v in deltas:
+            apply_flat_delta(arr, i, v)
+
+    apply()  # the same values again are a no-op: the timed runs repeat it
+    given = feasible.clone()
+    scores, feasible_new = rescore_dirty(snap, scores, feasible, node_rows, pod_rows, cfg)
+    full_s, full_f = score_cycle(snap, cfg)
+    if not (torch.equal(scores, full_s) and torch.equal(feasible_new, full_f)):
+        raise AssertionError(f"incremental {label}: rescore_dirty != a full score_cycle")
+    if not torch.equal(feasible, given):
+        raise AssertionError(f"incremental {label}: rescore_dirty wrote the feasible given")
+    changed = int((feasible_new != feasible).sum())
+    times = {
+        "apply_flat_delta": cuda_time(apply),
+        "rescore_dirty": cuda_time(
+            lambda: rescore_dirty(snap, scores, feasible_new, node_rows, pod_rows, cfg)),
+        "full_score_cycle": cuda_time(lambda: score_cycle(snap, cfg)),
+    }
+    return {
+        "config": label, "dirty_node_rows": len(node_rows), "dirty_pod_rows": len(pod_rows),
+        "delta_values": int(sum(len(i) for _, i, _ in deltas)),
+        "feasible_cells_changed": changed,
+        **{f"{name}_ms_cuda_events": ev for name, (ev, _) in times.items()},
+        **{f"{name}_ms_host_wall": wall for name, (_, wall) in times.items()},
+        "timed_runs": TIMED_RUNS, "parity": "exact vs a full score_cycle", "card": card,
+    }
+
+
+def sparse_phase(card, dev):
+    """The ``sparse`` line (phase 9)."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
+    from koordinator_tpu_torch.solver import (
+        CandidateOverflow, build_candidates, check_candidate_overflow, masked_top_k,
+        refresh_candidates, score_candidates, score_cycle, score_upper_bound, sparse_top_k,
+    )
+    from koordinator_tpu_torch.solver import candidates as cmod
+    from koordinator_tpu_torch.solver.resident import apply_flat_delta
+
+    width, k = 256, 32
+    cfg = CycleConfig(candidate_width=width)
+    hi = score_upper_bound(cfg)
+
+    def sparse_once(snap, cand):
+        s, f = score_candidates(snap, cand, cfg)
+        ts, ti, _ok = sparse_top_k(s, f, cand, k=k, hi=hi)
+        return ts.cpu(), ti.cpu()
+
+    def delta64(snap, cand, seed):
+        """Close 32 listed nodes and open 32 others (requested cpu)."""
+        rng = np.random.default_rng(seed)
+        listed = np.unique(cand.cpu().numpy())
+        listed = listed[listed < snap.nodes.capacity]
+        closed = rng.choice(listed, 32, replace=False)
+        opened = rng.choice(np.setdiff1d(np.arange(snap.nodes.capacity), listed), 32,
+                            replace=False)
+        rows = np.concatenate([closed, opened])
+        R = snap.nodes.requested.shape[1]
+        apply_flat_delta(snap.nodes.requested, rows * R,
+                         np.concatenate([np.full(32, 31_800), np.zeros(32)]).astype(np.int64))
+        return sorted(rows.tolist())
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # the scale point: 2^21 nodes x 512 pods
+    t0 = time.perf_counter()
+    big = snapshot_from_numpy(g.sparse_leaves(1 << 21, 512, n_open=width // 2, seed=16),
+                              device=dev)
+    encode_s = time.perf_counter() - t0
+    blocks = big.nodes.capacity // cmod._sweep_block(big.nodes.capacity, width)
+    if not blocks >= cmod._PARALLEL_MIN_BLOCKS or cmod._parallel_build_mode() != "auto":
+        raise AssertionError(f"sparse: {blocks} blocks do not take the pipelined build")
+    build_ms, (cand, count) = timed_once(lambda: build_candidates(big, cfg))
+    check_candidate_overflow(count, width)
+    if int(count.min()) != width // 2:
+        raise AssertionError(f"sparse: feasible counts {int(count.min())}..{int(count.max())}")
+    score_ev, score_wall = cuda_time(lambda: sparse_once(big, cand))
+    rows = delta64(big, cand, seed=16)
+    refresh_ms, refreshed = timed_once(
+        lambda: refresh_candidates(big, cand, count, rows, [], cfg))
+    if not same(refreshed, build_candidates(big, cfg)):
+        raise AssertionError("sparse: refreshed lists at 2^21 differ from a fresh build")
+
+    # where the dense path fits: 4,096 nodes x 512 pods
+    mid = snapshot_from_numpy(g.sparse_leaves(4096, 512, n_open=width // 2, seed=17),
+                              device=dev)
+    cand_m, count_m = build_candidates(mid, cfg)
+    check_candidate_overflow(count_m, width)
+    dense = masked_top_k(*score_cycle(mid, cfg), k=k, hi=hi)
+    if not same((t.cpu() for t in dense), sparse_once(mid, cand_m)):
+        raise AssertionError("sparse: top-k differs from the dense score_cycle + masked_top_k")
+    dense_ev, _ = cuda_time(lambda: [t.cpu() for t in masked_top_k(
+        *score_cycle(mid, cfg), k=k, hi=hi)])
+    sparse_mid_ev, _ = cuda_time(lambda: sparse_once(mid, cand_m))
+    rows_m = delta64(mid, cand_m, seed=17)
+    if not same(refresh_candidates(mid, cand_m, count_m, rows_m, [], cfg),
+                build_candidates(mid, cfg)):
+        raise AssertionError("sparse: refreshed lists differ from a fresh build")
+    narrow = dataclasses.replace(cfg, candidate_width=64)
+    try:
+        check_candidate_overflow(build_candidates(mid, narrow)[1], 64)
+    except CandidateOverflow as exc:
+        refused = str(exc).split(":")[0]
+    else:
+        raise AssertionError("sparse: 128 feasible nodes fit a width of 64")
+    table_bytes = big.nodes.allocatable.numel() * big.nodes.allocatable.element_size()
+    return {
+        "nodes": big.nodes.capacity, "pods": big.pods.capacity, "width": width, "k": k,
+        "n_open": width // 2, "blocks": blocks, "encode_s": encode_s,
+        "cold_build_ms": build_ms, "refresh_64_nodes_ms": refresh_ms,
+        "score_topk_readback_ms_cuda_events": score_ev,
+        "score_topk_readback_ms_host_wall": score_wall,
+        "mid_4096_dense_score_topk_ms": dense_ev, "mid_4096_sparse_score_topk_ms": sparse_mid_ev,
+        "node_table_bytes_each": table_bytes, "overflow_refused": refused,
+        "timed_runs": TIMED_RUNS,
+        "parity": "mid: sparse top-k == dense, refresh == fresh build; 2^21: refresh == "
+                  "fresh build; width 64 < 128 feasible refused",
+        "card": card,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -392,11 +666,14 @@ def main() -> int:
     from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.harness import generators as g
     from koordinator_tpu_torch.harness.anchor import (
-        ANCHOR_RECIPE, ANCHOR_SHA256, WAVE_ANCHOR_CFG, WAVE_ANCHOR_ROUNDS, cycle_digest,
+        ANCHOR_RECIPE, ANCHOR_SHA256, TERM_ANCHOR_HEADROOM, TERM_ANCHOR_SEED,
+        TERM_ANCHOR_SHA256, TERM_TOPK_ANCHOR_SHA256, TOPK_ANCHOR_K, TOPK_ANCHOR_SHA256,
+        WAVE_ANCHOR_CFG, WAVE_ANCHOR_ROUNDS, cycle_digest,
     )
     from koordinator_tpu_torch.solver import (
         dense, greedy_assign, kernel_demotions, run_cycle, wide,
     )
+    from koordinator_tpu_torch.solver.terms import default_term_config, term_extras
     from koordinator_tpu_torch.config import CycleConfig
 
     phase_s = {}
@@ -634,7 +911,70 @@ def main() -> int:
           f"({digest[:16]}), wave rounds {WAVE_ANCHOR_ROUNDS} match")
     phase_done("5_anchor")
 
-    # phase 6
+    # phase 6: the Score RPC's device side, default and term configuration
+    snap_t = g.with_term_tensors(snap, seed=TERM_ANCHOR_SEED)
+    cfg_t = default_term_config(packing_headroom=TERM_ANCHOR_HEADROOM)
+    anchor_t = g.with_term_tensors(anchor, seed=TERM_ANCHOR_SEED)
+    print(json.dumps({"score_headline": [
+        {"snapshot": snapshot_desc,
+         **score_phase(card, "default", snap, cfg, TOPK_ANCHOR_K, anchor, TOPK_ANCHOR_SHA256)},
+        {"snapshot": snapshot_desc + ", term data seed 0",
+         **score_phase(card, "terms: default_term_config(packing_headroom=cpu 98, memory 98)",
+                       snap_t, cfg_t, TOPK_ANCHOR_K, anchor_t, TERM_TOPK_ANCHOR_SHA256)},
+    ]}))
+    phase_done("6_score_headline")
+
+    # phase 7: the Assign cycle with the fused terms, on K2 and on K3
+    extras_ev, extras_wall = cuda_time(lambda: term_extras(snap_t, cfg_t))
+    xs_t, xm_t = term_extras(snap_t, cfg_t)
+    oracle_t = greedy_assign(snap_t, cfg_t, extra_mask=xm_t, extra_scores=xs_t)
+    cfg_tw = dataclasses.replace(cfg_t, **WAVE_CFG)
+    terms_line = {"term_extras_ms_cuda_events": extras_ev,
+                  "term_extras_ms_host_wall": extras_wall, "runs": []}
+    for name, c, kernel, plain, kw in (
+        ("terms headline", cfg_t, wide.cycle_wide_cuda, wide.cycle_wide_reference, {}),
+        ("terms wave headline", cfg_tw, wide.wave_cycle_cuda,
+         wide.wave_cycle_reference, WAVE_CFG),
+    ):
+        res_t, counts = drive(name, oracle_t, snap_t, c)
+        launched = "wave_cycle" if kw else "cycle_wide"
+        launches = only(name, counts, launched)
+        ev, wall = cuda_time(lambda: run_cycle(snap_t, c))
+        inp_t = wide.prepare_wide_inputs(snap_t, c, xm_t, xs_t)
+        k_ms, k_plain_ms, k_err = kernel_vs_plain(name, kernel, plain, inp_t, c, **kw)
+        run = {"path": f"run_cycle(snap_terms, {'wave=32, top_m=4' if kw else 'cfg_terms'})",
+               "kernel": launched, "launches": launches,
+               "assigned": int((res_t.assignment >= 0).sum()),
+               "cycle_ms_cuda_events": ev, "cycle_ms_host_wall": wall, "kernel_ms": k_ms,
+               "plain_ms": k_plain_ms, "max_abs_err": k_err,
+               "parity": "exact vs greedy_assign on the term extras and vs the plain version"}
+        if kw:
+            if res_t.rounds is None:
+                raise AssertionError("the terms wave headline has no rounds")
+            run["rounds"] = int(res_t.rounds)
+        terms_line["runs"].append(run)
+    at = run_cycle(anchor_t, cfg_t)
+    t_digest = cycle_digest(at.assignment.cpu(), at.status.cpu())
+    if at.path != "cuda" or t_digest != TERM_ANCHOR_SHA256:
+        raise AssertionError(f"term anchor digest {t_digest} != {TERM_ANCHOR_SHA256}")
+    terms_line.update({"anchor_digest": "matches", "moved_by_terms": int(
+        (oracle_t.assignment != oracle.assignment).sum()), "snapshot": snapshot_desc,
+        "card": card})
+    print(json.dumps({"terms_cycle": terms_line}))
+    phase_done("7_terms_cycle")
+
+    # phase 8: the warm delta and the incremental rescore
+    print(json.dumps({"incremental": [
+        incremental_phase(card, "default", snap, cfg, seed=8),
+        incremental_phase(card, "terms", snap_t, cfg_t, seed=8),
+    ]}))
+    phase_done("8_incremental")
+
+    # phase 9: the sparse candidate engine
+    print(json.dumps({"sparse": sparse_phase(card, dev)}))
+    phase_done("9_sparse")
+
+    # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",

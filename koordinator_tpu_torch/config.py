@@ -91,9 +91,7 @@ class LoadAwareArgs:
         )
 
 
-# Fused scoring-term configs.  They are carried so that configs round-trip
-# between the two packages; the port's cycle does not run the terms yet and
-# refuses a config that sets one (solver.run_cycle).
+# Fused scoring-term configs (the registry is ``solver/terms.py``).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +123,13 @@ class PackingTermArgs:
         )
         object.__setattr__(self, "headroom", _freeze(self.headroom))
 
+    def weights_arr(self, device=None) -> torch.Tensor:
+        return _dense(self.resource_weights, device)
+
+    def headroom_arr(self, device=None) -> torch.Tensor:
+        """Per-resource headroom percent; 0 = unconstrained dimension."""
+        return _dense(self.headroom, device)
+
 
 @dataclasses.dataclass(frozen=True)
 class CycleConfig:
@@ -133,9 +138,10 @@ class CycleConfig:
     ``wave > 1`` selects the wave-batched cycle (``top_m`` candidates per
     pod): ``run_cycle`` runs the wave kernel on the card and ``wave_assign``
     on the CPU, with the per-pod path's placements bit for bit and the
-    number of rounds on the result.  ``candidate_width``/
-    ``candidate_max_stale`` select the reference's sparse candidate path;
-    the port carries them so that configs round-trip and does not run it.
+    number of rounds on the result.  ``candidate_width`` (a power of two,
+    0 = off) is the sparse candidate engine's list width
+    (``solver/candidates.py``); ``candidate_max_stale`` is carried so that
+    configs round-trip with the reference's serving layer.
     """
 
     loadaware: LoadAwareArgs = LoadAwareArgs()

@@ -11,6 +11,16 @@ The wave-batched cycle places pods exactly as the per-pod one, so its
 digest at ``WAVE_ANCHOR_CFG`` is ``ANCHOR_SHA256`` too; ``WAVE_ANCHOR_ROUNDS``
 is the reference wave kernel's round count there, recomputed by the same
 test from the JAX kernel in interpret mode.
+
+The Score path has anchors at the same recipe: ``TOPK_ANCHOR_SHA256`` is
+the digest of the reference's ``masked_top_k(k=TOPK_ANCHOR_K,
+hi=score_upper_bound(cfg))`` of ``score_cycle`` under the default config,
+``TERM_TOPK_ANCHOR_SHA256`` the same under the term config
+(``default_term_config(packing_headroom=TERM_ANCHOR_HEADROOM)``, term data
+of ``generators.with_term_tensors(snap, TERM_ANCHOR_SEED)``), and
+``TERM_ANCHOR_SHA256`` the cycle digest of the reference's ``run_cycle``
+under the term config.  ``tests/test_torch_score.py`` and
+``tests/test_torch_terms.py`` recompute them from the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +33,12 @@ ANCHOR_RECIPE = {"seed": 0, "pods": 2000, "nodes": 400, "tenants": 16}
 ANCHOR_SHA256 = "82d0f61872bb822febac6eb755ecff803608bbdb344cbc863c8a7a43327208ce"
 WAVE_ANCHOR_CFG = {"wave": 32, "top_m": 4}
 WAVE_ANCHOR_ROUNDS = 157
+TOPK_ANCHOR_K = 32
+TOPK_ANCHOR_SHA256 = "89d5dd3109c5215fb1d09ef5f33fcd37babe65bcfbec9b33150296538492d18a"
+TERM_ANCHOR_SEED = 0
+TERM_ANCHOR_HEADROOM = {"cpu": 98, "memory": 98}
+TERM_TOPK_ANCHOR_SHA256 = "a0836829af862868d9423c0ddfe4a671738b67f91dc9215083f35894ad2d0467"
+TERM_ANCHOR_SHA256 = "c027d556bf28ea9f7d6daba7874cb26910a46cc40af68ef712a0f90ebc13fa0f"
 
 
 def cycle_digest(assignment, status) -> str:
@@ -31,4 +47,13 @@ def cycle_digest(assignment, status) -> str:
     h = hashlib.sha256()
     for a in (assignment, status):
         h.update(np.ascontiguousarray(np.asarray(a), dtype="<i4").tobytes())
+    return h.hexdigest()
+
+
+def topk_digest(top_scores, top_idx) -> str:
+    """sha256 over the little-endian int64 bytes of the top-k scores, then
+    the int32 bytes of their indices.  Takes numpy arrays or CPU tensors."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(np.asarray(top_scores), dtype="<i8").tobytes())
+    h.update(np.ascontiguousarray(np.asarray(top_idx), dtype="<i4").tobytes())
     return h.hexdigest()

@@ -250,3 +250,95 @@ def encode_quota_lists(
         device=device,
     )
     return snap, qdicts
+
+
+# The term configuration's data (the reference's plugins measurement,
+# ``bench.py --config plugins``): 4 workload classes, 3 accelerator types.
+TERM_CLASSES = 4
+TERM_ACCELS = 3
+
+
+def term_tensors(pod_bucket: int, node_bucket: int, seed: int = 0):
+    """numpy data of the fused scoring terms for a snapshot of these
+    buckets, drawn as the reference's plugins measurement draws it:
+    ``accel_type = arange(N) % 3``, ``workload_class = arange(P) % 4``,
+    sensitivity columns cpu and memory uniform in [0, 100] (the rest 0) and
+    a 4 x 3 throughput matrix uniform in [0, 100], from
+    ``numpy.random.default_rng(seed)`` in that order."""
+    from koordinator_tpu_torch.model import resources as res
+
+    rng = np.random.default_rng(seed)
+    sens = np.zeros((pod_bucket, res.NUM_RESOURCES), np.int64)
+    sens[:, res.RESOURCE_INDEX[res.CPU]] = rng.integers(0, 101, pod_bucket)
+    sens[:, res.RESOURCE_INDEX[res.MEMORY]] = rng.integers(0, 101, pod_bucket)
+    return {
+        "accel_type": (np.arange(node_bucket) % TERM_ACCELS).astype(np.int32),
+        "workload_class": (np.arange(pod_bucket) % TERM_CLASSES).astype(np.int32),
+        "sensitivity": sens,
+        "throughput": rng.integers(0, 101, (TERM_CLASSES, TERM_ACCELS)).astype(np.int64),
+    }
+
+
+def with_term_tensors(snapshot, seed: int = 0):
+    """``snapshot`` with the term data of :func:`term_tensors` on its
+    device."""
+    import dataclasses
+
+    import torch
+
+    t = term_tensors(snapshot.pods.capacity, snapshot.nodes.capacity, seed)
+    dev = snapshot.device
+
+    def on(name):
+        return torch.from_numpy(t[name]).to(dev)
+
+    return dataclasses.replace(
+        snapshot,
+        nodes=dataclasses.replace(snapshot.nodes, accel_type=on("accel_type")),
+        pods=dataclasses.replace(
+            snapshot.pods,
+            workload_class=on("workload_class"),
+            sensitivity=on("sensitivity"),
+        ),
+        throughput=on("throughput"),
+    )
+
+
+def sparse_leaves(nodes: int, pods: int, n_open: int, seed: int):
+    """numpy leaves (``model.snapshot.snapshot_from_numpy``) of the sparse
+    engine's narrow-feasibility cluster, as the reference's sparse
+    measurement builds it: ``n_open`` nodes chosen by
+    ``numpy.random.default_rng(seed)`` have room for the uniform 500m /
+    512 MiB pods, every other node is requested to the brim, so each pod's
+    exact feasible count is ``n_open``."""
+    from koordinator_tpu_torch.model import resources as res
+
+    R = res.NUM_RESOURCES
+    cpu, mem, npods = (res.RESOURCE_INDEX[k] for k in (res.CPU, res.MEMORY, res.PODS))
+    rng = np.random.default_rng(seed)
+    nalloc = np.zeros((nodes, R), np.int64)
+    nalloc[:, cpu] = 32_000
+    nalloc[:, mem] = 128 * 1024
+    nalloc[:, npods] = 256
+    nreq = np.zeros((nodes, R), np.int64)
+    nreq[:, cpu] = 31_800  # 200m free < the 500m ask
+    nreq[rng.choice(nodes, size=n_open, replace=False), cpu] = 0
+    nuse = (nalloc * 0.3).astype(np.int64)
+    preq = np.zeros((pods, R), np.int64)
+    preq[:, cpu], preq[:, mem], preq[:, npods] = 500, 512, 1
+    return {
+        "nodes": {"allocatable": nalloc, "requested": nreq, "usage": nuse,
+                  "metric_fresh": np.ones(nodes, bool), "valid": np.ones(nodes, bool)},
+        "pods": {"requests": preq, "estimated": preq.copy(),
+                 "priority_class": np.zeros(pods, np.int32),
+                 "qos": np.zeros(pods, np.int32),
+                 "priority": np.full(pods, 5000, np.int32),
+                 "gang_id": np.full(pods, -1, np.int32),
+                 "quota_id": np.full(pods, -1, np.int32),
+                 "valid": np.ones(pods, bool)},
+        "gangs": {"min_member": np.zeros(1, np.int32), "valid": np.zeros(1, bool)},
+        "quotas": {"runtime": np.zeros((1, R), np.int64),
+                   "used": np.zeros((1, R), np.int64),
+                   "limited": np.zeros((1, R), bool),
+                   "valid": np.zeros(1, bool)},
+    }

@@ -30,17 +30,18 @@ def nonzero_requests(pod_requests: torch.Tensor) -> torch.Tensor:
 
 def fit_mask(
     pod_requests: torch.Tensor,  # i64[P, R]
-    node_requested: torch.Tensor,  # i64[N, R]
-    node_allocatable: torch.Tensor,  # i64[N, R]
-    node_valid: torch.Tensor,  # bool[N]
+    node_requested: torch.Tensor,  # i64[N, R] or i64[P, C, R]
+    node_allocatable: torch.Tensor,  # i64[N, R] or i64[P, C, R]
+    node_valid: torch.Tensor,  # bool[N] or bool[P, C]
     pod_valid: torch.Tensor,  # bool[P]
 ) -> torch.Tensor:
     """Feasibility mask bool[P, N]: the pod fits the node's remaining
-    allocatable on every resource it requests (zero requests never fail)."""
+    allocatable on every resource it requests (zero requests never fail).
+
+    The node side broadcasts against the pods' ``[P, 1, R]``: node tables
+    of [N, R] give every pod x node cell, node rows gathered per pod
+    ([P, C, R], the sparse engine's candidate lists) give [P, C]."""
     need = pod_requests[:, None, :] > 0
-    fits_r = (
-        node_requested[None, :, :] + pod_requests[:, None, :]
-        <= node_allocatable[None, :, :]
-    )
+    fits_r = node_requested + pod_requests[:, None, :] <= node_allocatable
     ok = (fits_r | ~need).all(-1)
-    return ok & node_valid[None, :] & pod_valid[:, None]
+    return ok & node_valid & pod_valid[:, None]

@@ -50,6 +50,9 @@ def loadaware_node_masks(nodes, cfg):
     * PriorityProd pods with ProdUsageThresholds filter against the node's
       prod-pods usage instead of whole-node usage
     * an expired or missing NodeMetric always passes
+
+    Node tables may carry leading axes beyond [N] (rows gathered per pod);
+    the masks then have those axes.
     """
     dev = nodes.allocatable.device
     thr = cfg.loadaware_thresholds_arr(dev)
@@ -62,10 +65,10 @@ def loadaware_node_masks(nodes, cfg):
     ):
         a = PERCENTILES.index(agg.usage_aggregation_type)
         mask_default = loadaware_filter_mask(
-            nodes.agg_usage[:, a], nodes.allocatable, thr, nodes.metric_fresh
+            nodes.agg_usage[..., a, :], nodes.allocatable, thr, nodes.metric_fresh
         )
         if nodes.agg_fresh is not None:
-            mask_default = mask_default | ~nodes.agg_fresh[:, a]
+            mask_default = mask_default | ~nodes.agg_fresh[..., a]
     else:
         mask_default = loadaware_filter_mask(
             nodes.usage, nodes.allocatable, thr, nodes.metric_fresh
@@ -102,9 +105,9 @@ def select_score_usage(nodes, cfg):
         and nodes.agg_usage is not None
     ):
         a = PERCENTILES.index(agg.score_aggregation_type)
-        sel = nodes.agg_usage[:, a]
+        sel = nodes.agg_usage[..., a, :]
         if nodes.agg_fresh is not None:
-            sel = torch.where(nodes.agg_fresh[:, a, None], sel, usage)
+            sel = torch.where(nodes.agg_fresh[..., a, None], sel, usage)
         usage = sel
     prod = None
     if cfg.loadaware.score_according_prod_usage and nodes.prod_usage is not None:

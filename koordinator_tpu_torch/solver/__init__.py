@@ -8,6 +8,13 @@ one) when the inputs fit them, else the dense int64 kernel (``dense.py``).  A ru
 launch raises is demoted for its shape bucket with the reference's backoff
 and the next rung runs; when every rung has failed or is demoted,
 ``run_cycle`` raises.  It never drops to a plain version on the card.
+
+The Score side is exported here too, as in the reference: ``score_all``/
+``score_cycle`` (``greedy.py``), ``masked_top_k``/``score_upper_bound``
+(``topk.py``), ``rescore_dirty`` (``incremental.py``) and the sparse
+candidate engine (``candidates.py``).  They are plain PyTorch on the
+snapshot's device: the reference runs them as XLA programs, outside any
+Pallas kernel.
 """
 
 import logging
@@ -21,9 +28,28 @@ from koordinator_tpu_torch.solver.greedy import (  # noqa: F401
     STATUS_ASSIGNED,
     STATUS_UNSCHEDULABLE,
     STATUS_WAIT_GANG,
+    feasibility_mask,
     greedy_assign,
     queue_order,
+    score_all,
+    score_cycle,
     step_feasible_scores,
+)
+from koordinator_tpu_torch.solver.candidates import (  # noqa: F401
+    CandidateOverflow,
+    build_candidates,
+    candidate_membership_mask,
+    check_candidate_overflow,
+    refresh_candidates,
+    score_candidates,
+    sparse_top_k,
+)
+from koordinator_tpu_torch.solver.incremental import rescore_dirty  # noqa: F401
+from koordinator_tpu_torch.solver.terms import term_extras, terms_upper_bound
+from koordinator_tpu_torch.solver.topk import (  # noqa: F401
+    masked_top_k,
+    masked_top_k_host,
+    score_upper_bound,
 )
 from koordinator_tpu_torch.solver.dense import greedy_assign_dense  # noqa: F401
 from koordinator_tpu_torch.solver.wave import wave_assign  # noqa: F401
@@ -167,19 +193,30 @@ def run_cycle(snapshot, cfg=None, extra_mask=None, extra_scores=None, i32_ok=Non
     Every route gives the same placements and post-cycle state as the
     reference's ``run_cycle``.  ``i32_ok``: callers that already know
     whether the snapshot fits the int32 kernels pass it to skip the check.
-    The fused scoring terms (``cfg.heterogeneity``/``sensitivity``/
-    ``packing``) are not ported yet; a config that sets one is refused.
+
+    Fused scoring terms (``cfg.heterogeneity``/``sensitivity``/``packing``)
+    are materialised once (``terms.term_extras``) and folded into
+    ``extra_scores``/``extra_mask``, which every route already reads.
+    Extras from terms alone are bounded by the config
+    (``terms_upper_bound``), with no device reduction; with the caller's
+    extras the bound is their peak plus the terms' bound.
     """
     from koordinator_tpu_torch.config import DEFAULT_CYCLE_CONFIG
 
     if cfg is None:
         cfg = DEFAULT_CYCLE_CONFIG
-    if cfg.has_terms:
-        raise NotImplementedError(
-            "fused scoring terms (heterogeneity/sensitivity/packing) are not "
-            "ported to koordinator_tpu_torch yet"
-        )
-    scores_hi = extra_scores_peak(extra_scores)
+    caller_scores = extra_scores
+    t_scores, t_mask = term_extras(snapshot, cfg)
+    if t_scores is not None:
+        extra_scores = t_scores if extra_scores is None else extra_scores + t_scores
+    if t_mask is not None:
+        extra_mask = t_mask if extra_mask is None else extra_mask & t_mask
+    if caller_scores is None:
+        scores_hi = None if extra_scores is None else terms_upper_bound(cfg)
+    else:
+        scores_hi = extra_scores_peak(caller_scores)
+        if t_scores is not None:
+            scores_hi += terms_upper_bound(cfg)
     args = (snapshot, cfg, extra_mask, extra_scores)
     if snapshot.device.type != "cuda":
         if cfg.wave > 1 and (scores_hi is None or scores_hi < 2**31):

@@ -11,6 +11,15 @@ Queue order follows the Coscheduling QueueSort (``coscheduling.go:118``):
 higher priority first, then stable by index; padding last.  Gang
 all-or-nothing (Permit, ``coscheduling/core/core.go:308``) is applied after
 the loop: pods of a gang below minMember are marked WAIT_GANG.
+
+``score_all`` is the one statement of the stateless Filter+Score of every
+(pod, node) cell, the Score RPC's tensor program (``score_cycle``): every
+term reads one pod row and one node row, so the incremental rescore and
+the sparse candidate engine get the same bits from gathered rows.  Node
+tables are [N, ...] or rows gathered per pod ([P, C, ...]); the pod side
+broadcasts as ``[P, 1, ...]``.  Pod rows are computed in chunks
+(``by_pod_rows``), which bounds the [rows, N, R] temporaries and changes no
+bit.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from koordinator_tpu_torch.config import (
 )
 from koordinator_tpu_torch.constraints.gang import gang_satisfaction
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
-from koordinator_tpu_torch.ops.fit import nonzero_requests
+from koordinator_tpu_torch.ops.fit import fit_mask, nonzero_requests
 from koordinator_tpu_torch.ops.loadaware import (
     loadaware_node_masks,
     select_score_usage,
@@ -44,6 +53,10 @@ STATUS_WAIT_GANG = 2
 
 INT64_MIN = torch.iinfo(torch.int64).min
 INT64_MAX = torch.iinfo(torch.int64).max
+
+# bytes of one [rows, cells, R] int64 temporary of the Score program; at 10k
+# pods x 2k nodes one unchunked temporary is 2.08 GB
+CHUNK_BYTES = 512 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,3 +263,134 @@ def greedy_assign(
         snapshot, order, chosen_in_order, node_requested, node_estimated,
         quota_used, path="scan",
     )
+
+
+def cell_shape(snapshot: ClusterSnapshot):
+    """Shape of the snapshot's cell grid: [P, N], or [P, C] for node rows
+    gathered per pod."""
+    return torch.broadcast_shapes(
+        snapshot.pods.valid[:, None].shape, snapshot.nodes.valid.shape
+    )
+
+
+def _pod_rows(snapshot: ClusterSnapshot, rows: slice) -> ClusterSnapshot:
+    """The snapshot restricted to the pod rows ``rows`` (views, no copy);
+    node rows gathered per pod are restricted with them."""
+    def cut(table):
+        return dataclasses.replace(table, **{
+            f.name: getattr(table, f.name)[rows]
+            for f in dataclasses.fields(table)
+            if isinstance(getattr(table, f.name), torch.Tensor)
+        })
+
+    nodes = snapshot.nodes
+    if nodes.valid.dim() == 2:
+        nodes = cut(nodes)
+    return dataclasses.replace(snapshot, pods=cut(snapshot.pods), nodes=nodes)
+
+
+def by_pod_rows(fn, snapshot: ClusterSnapshot, cfg: CycleConfig):
+    """``fn(snapshot, cfg)`` (a tuple of [P, ...] tensors) computed over
+    chunks of pod rows whose [rows, cells, R] int64 temporaries stay within
+    ``CHUNK_BYTES``.  Every cell reads its own pod row only, so the chunked
+    result equals the unchunked one bit for bit."""
+    P, R = snapshot.pods.requests.shape
+    cells = max(int(snapshot.nodes.valid.shape[-1]), 1)
+    step = max(1, CHUNK_BYTES // (cells * R * 8))
+    if P <= step:
+        return fn(snapshot, cfg)
+    out = None
+    for start in range(0, P, step):
+        rows = slice(start, min(P, start + step))
+        parts = fn(_pod_rows(snapshot, rows), cfg)
+        if out is None:
+            out = tuple(
+                torch.empty((P,) + p.shape[1:], dtype=p.dtype, device=p.device)
+                for p in parts
+            )
+        for o, p in zip(out, parts):
+            o[rows] = p
+    return out
+
+
+def _fit_score_requests(requests: torch.Tensor) -> torch.Tensor:
+    return nonzero_requests(requests)
+
+
+def _combined_scores(
+    snapshot: ClusterSnapshot, cfg: CycleConfig, pod_score_requests: torch.Tensor
+) -> torch.Tensor:
+    """Weighted sum of the enabled plugin scores of every cell, against the
+    snapshot's node state (no Reserve: the estimated load of pods placed in
+    this cycle is zero)."""
+    nodes, pods = snapshot.nodes, snapshot.pods
+    dev = nodes.allocatable.device
+    total = torch.zeros(cell_shape(snapshot), dtype=torch.int64, device=dev)
+    if cfg.enable_fit_score:
+        t = nodes.requested + pod_score_requests[:, None, :]
+        if cfg.fit_scoring_strategy == MOST_ALLOCATED:
+            per_res = most_requested_score(t, nodes.allocatable)
+        else:
+            per_res = least_requested_score(t, nodes.allocatable)
+        total = total + cfg.fit_plugin_weight * weighted_resource_score(
+            per_res, cfg.fit_weights_arr(dev)
+        )
+    if cfg.enable_loadaware:
+        usage_sel, usage_prod = select_score_usage(nodes, cfg)
+        if usage_prod is not None:
+            is_prod = pods.priority_class == int(PriorityClass.PROD)
+            usage_sel = torch.where(is_prod[:, None, None], usage_prod, usage_sel)
+        est_used = usage_sel + pods.estimated[:, None, :]
+        per_res = least_requested_score(est_used, nodes.allocatable)
+        la = weighted_resource_score(per_res, cfg.loadaware_weights_arr(dev))
+        la = torch.where(nodes.metric_fresh, la, torch.zeros_like(la))
+        total = total + cfg.loadaware_plugin_weight * la
+    return total
+
+
+def _feasibility_block(snapshot: ClusterSnapshot, cfg: CycleConfig):
+    from koordinator_tpu_torch.solver.terms import apply_term_masks
+
+    pods, nodes = snapshot.pods, snapshot.nodes
+    feasible = fit_mask(
+        pods.requests, nodes.requested, nodes.allocatable, nodes.valid, pods.valid
+    )
+    if cfg.enable_loadaware:
+        mask_default, mask_prod = loadaware_node_masks(nodes, cfg)
+        is_prod = pods.priority_class == int(PriorityClass.PROD)
+        feasible = feasible & torch.where(is_prod[:, None], mask_prod, mask_default)
+    return (apply_term_masks(snapshot, cfg, feasible),)
+
+
+def feasibility_mask(
+    snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG
+) -> torch.Tensor:
+    """The mask half of :func:`score_all`: requests fit, node validity,
+    the LoadAware masks and every enabled term's mask, with no scoring
+    arithmetic.  The sparse candidate engine sweeps it blockwise."""
+    return by_pod_rows(_feasibility_block, snapshot, cfg)[0]
+
+
+def _score_block(snapshot: ClusterSnapshot, cfg: CycleConfig):
+    from koordinator_tpu_torch.solver.terms import apply_term_scores
+
+    (feasible,) = _feasibility_block(snapshot, cfg)
+    scores = _combined_scores(
+        snapshot, cfg, _fit_score_requests(snapshot.pods.requests)
+    )
+    return apply_term_scores(snapshot, cfg, scores), feasible
+
+
+def score_all(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG):
+    """Stateless Filter+Score of every cell -> (scores i64[P, N], feasible
+    bool[P, N]) on the snapshot's device: the reference's Filter+Score for
+    each pending pod against the snapshot as it is (no Reserve within the
+    batch), with the fused terms.  Composed of the mask half
+    (:func:`feasibility_mask`) and the score half; the halves commute."""
+    return by_pod_rows(_score_block, snapshot, cfg)
+
+
+def score_cycle(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG):
+    """The Score RPC's full rescore: ``score_all`` over the whole
+    snapshot.  Returns (scores i64[P, N], feasible bool[P, N])."""
+    return score_all(snapshot, cfg)

@@ -208,10 +208,15 @@ def test_run_cycle_cpu_with_extras_and_wave_config():
 
 
 def test_run_cycle_refuses_scoring_terms():
-    _, ts = encode_pair(quota_lists(8, 4), quota=True)
+    """The refusal is lifted: the fused scoring terms are ported
+    (``solver/terms.py``), and ``run_cycle`` answers a config that sets one
+    as the reference does (``tests/test_torch_terms.py`` holds every term)."""
+    js, ts = encode_pair(quota_lists(8, 4), quota=True)
     cfg = tconfig.CycleConfig(packing=tconfig.PackingTermArgs())
-    with pytest.raises(NotImplementedError):
-        run_cycle(ts, cfg)
+    got = run_cycle(ts, cfg)
+    assert got.path == "scan"
+    assert_cycle_equal(got, j_run_cycle(js, jconfig.CycleConfig(
+        packing=jconfig.PackingTermArgs())), "packing term")
 
 
 @pytest.mark.parametrize("seed", range(3))

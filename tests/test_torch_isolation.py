@@ -41,6 +41,7 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 _ISOLATED = r"""
 import json, sys
+import torch
 sys.modules["jax"] = None        # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 import koordinator_tpu_torch
@@ -51,11 +52,30 @@ from koordinator_tpu_torch.solver import run_cycle
 snap = generators.quota_colocation_snapshot(pods=24, nodes=6, device="cpu")[0]
 res = run_cycle(snap)
 wave = run_cycle(snap, CycleConfig(wave=8, top_m=2))
+from koordinator_tpu_torch.solver import (
+    build_candidates, masked_top_k, rescore_dirty, score_candidates, score_cycle,
+    score_upper_bound, sparse_top_k)
+from koordinator_tpu_torch.solver.resident import apply_flat_delta
+from koordinator_tpu_torch.solver.terms import default_term_config
+snap = generators.with_term_tensors(snap, seed=0)
+tcfg = default_term_config(packing_headroom={"cpu": 98})
+terms_res = run_cycle(snap, tcfg)
+scores, feasible = score_cycle(snap, tcfg)
+top = masked_top_k(scores, feasible, k=4, hi=score_upper_bound(tcfg))
+apply_flat_delta(snap.nodes.requested, [0], [1000])
+scores, feasible = rescore_dirty(snap, scores, feasible, [0], [], tcfg)
+scfg = CycleConfig(candidate_width=8)
+cand, count = build_candidates(snap, scfg)
+stop = sparse_top_k(*score_candidates(snap, cand, scfg), cand, k=2,
+                    hi=score_upper_bound(scfg))
 loaded = sorted(m for m in sys.modules
                 if m == "koordinator_tpu" or m.startswith("koordinator_tpu."))
 print(json.dumps({"placed": int((res.assignment >= 0).sum()), "path": res.path,
                   "wave_path": wave.path, "wave_rounds": int(wave.rounds) > 0,
                   "same": bool((wave.assignment == res.assignment).all()),
+                  "terms_path": terms_res.path, "top_shape": list(top[1].shape),
+                  "rescored": bool(torch.equal(scores, score_cycle(snap, tcfg)[0])),
+                  "sparse_shape": list(stop[1].shape),
                   "port_modules": sorted(m for m in sys.modules
                                          if m.startswith("koordinator_tpu_torch.solver.")),
                   "reference_modules": loaded}))
@@ -71,8 +91,10 @@ def test_port_runs_a_cycle_with_jax_blocked():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     ported = got.pop("port_modules")
     assert got == {"placed": 24, "path": "scan", "wave_path": "wave", "wave_rounds": True,
-                   "same": True, "reference_modules": []}
-    for mod in ("dense", "greedy", "wave", "wide"):
+                   "same": True, "terms_path": "scan", "top_shape": [24, 4],
+                   "rescored": True, "sparse_shape": [24, 2], "reference_modules": []}
+    for mod in ("candidates", "dense", "greedy", "incremental", "resident", "terms",
+                "topk", "wave", "wide"):
         assert f"koordinator_tpu_torch.solver.{mod}" in ported
 
 
