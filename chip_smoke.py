@@ -71,7 +71,20 @@ Phases (any failure raises and exits non-zero, printing no result):
    top-k equal to the dense ``score_cycle`` + ``masked_top_k``, its refreshed
    lists equal to a fresh build, and an overflowing width refused;
 10. the seconds of each phase, a ``kernels`` JSON line, the card line, then
-    the result line.
+    the result line;
+11. (run before phase 10's lines) ``bridge``: the serving seam at the
+    headline through the raw-UDS transport (``bridge/udsserver.py``): a full
+    Sync from ``harness/golden.build_sync_request`` whose resident snapshot
+    equals ``encode_snapshot``'s, the first Assign (K2 launched exactly once,
+    no demotion) equal to phase 4's ``run_cycle``, three warm delta Syncs
+    (each under 1 % of the full frame) with Assigns equal to ``run_cycle``
+    on the updated snapshot, a Score and a warm incremental Score equal to
+    the in-process ``score_cycle`` + ``masked_top_k``, three cold cycles, an
+    8-client x 16 Score storm equal to the serial reply, Assigns on K3 and
+    K1 through the servicer, the Go plugin's flow equal to the fixtures'
+    ``expected.json``, no protobuf runtime loaded, and, where ``grpc``
+    imports, the gRPC transport on the golden fixtures; each RPC timed
+    against its in-process call.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -655,6 +668,561 @@ def sparse_phase(card, dev):
     }
 
 
+class UdsClient:
+    """A raw-UDS client of the seam (``bridge/udsserver.py`` framing) with a
+    timeout on every socket operation.  ``split`` holds the last call's
+    host-clock split in ms: request encode and send, the server's time
+    until the reply's header arrived, the payload's transfer, and the
+    reply's decode."""
+
+    def __init__(self, path):
+        import socket
+
+        self.conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.conn.settimeout(300)
+        self.conn.connect(path)
+        self.split = {}
+
+    def call(self, method, msg, reply_cls):
+        import struct
+
+        t0 = time.perf_counter()
+        body = msg.SerializeToString()
+        self.conn.sendall(struct.pack(">BI", method, len(body)) + body)
+        t1 = time.perf_counter()
+        status, length = struct.unpack(">BI", self._recv(5))
+        t2 = time.perf_counter()
+        payload = self._recv(length)
+        t3 = time.perf_counter()
+        if status != 0:
+            raise AssertionError(f"RPC {method} failed: {payload.decode()}")
+        reply = reply_cls.FromString(payload)
+        t4 = time.perf_counter()
+        self.split = {"encode_send_ms": (t1 - t0) * 1e3, "server_ms": (t2 - t1) * 1e3,
+                      "transfer_ms": (t3 - t2) * 1e3, "decode_ms": (t4 - t3) * 1e3}
+        return reply
+
+    def _recv(self, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.conn.recv(min(n - len(buf), 1 << 22))
+            if not chunk:
+                raise AssertionError("the seam closed the connection")
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def close(self):
+        self.conn.close()
+
+
+def rpc_timed(fn):
+    """(result, CUDA-event ms, host-wall ms) of one call.  The events are
+    recorded on the caller's thread; the server thread's launches go to the
+    same default stream, so the event span covers them."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - w0) * 1e3
+
+
+def median_split(splits):
+    """Per-key medians of ``UdsClient.split`` dicts."""
+    return {k: statistics.median(d[k] for d in splits) for k in splits[0]}
+
+
+def seam_cost(rpc, in_process):
+    """One RPC's timing entry: medians of the RPC's (event, wall) samples and
+    of the in-process call's, and the host-wall difference (the seam's
+    cost: codec, socket, servicer, telemetry)."""
+    ev = statistics.median(e for e, _ in rpc)
+    wall = statistics.median(w for _, w in rpc)
+    ip_ev = statistics.median(e for e, _ in in_process)
+    ip_wall = statistics.median(w for _, w in in_process)
+    return {"rpc_ms_cuda_events": ev, "rpc_ms_host_wall": wall,
+            "in_process_ms_cuda_events": ip_ev, "in_process_ms_host_wall": ip_wall,
+            "seam_ms_host_wall": wall - ip_wall, "rpc_samples": len(rpc),
+            "in_process_samples": len(in_process)}
+
+
+def resident_vs_encoded(res, enc):
+    """Hold the resident snapshot a full Sync built against
+    ``encode_snapshot`` of the same cluster, leaf for leaf.  Four
+    differences are by design, as in the reference: the resident snapshot
+    carries no names and no ``qos`` (neither rides the wire), its
+    ``priority`` is int64 (the wire's type), its gang and quota tables are
+    not padded to a power-of-two bucket (the encoder's extra rows are
+    invalid and zero), and a LoadAware profile the Sync did not carry is
+    absent where the encoder holds zeros.  Returns the number of leaves
+    compared."""
+    import torch
+
+    from koordinator_tpu_torch.model.snapshot import SNAPSHOT_FIELDS
+
+    compared = 0
+    for table, (_, fields) in SNAPSHOT_FIELDS.items():
+        for f in fields:
+            if table == "pods" and f == "qos":
+                continue
+            a, b = getattr(getattr(res, table), f), getattr(getattr(enc, table), f)
+            if a is None:
+                if b is not None and b.any():
+                    raise AssertionError(f"bridge: {table}.{f} missing from the resident "
+                                         "snapshot")
+                continue
+            if b is None:
+                raise AssertionError(f"bridge: {table}.{f} present on one side only")
+            if a.device != b.device:
+                raise AssertionError(f"bridge: {table}.{f} on {a.device} vs {b.device}")
+            if table == "pods" and f == "priority":
+                b = b.long()
+            if table in ("gangs", "quotas"):
+                rows = a.shape[0]
+                if b.shape[0] < rows or b[rows:].any():
+                    raise AssertionError(f"bridge: {table}.{f} padding rows differ")
+                b = b[:rows]
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"bridge: resident {table}.{f} != encode_snapshot's")
+            compared += 1
+    if (res.throughput is None) != (enc.throughput is None):
+        raise AssertionError("bridge: throughput present on one side only")
+    return compared
+
+
+def grpc_fixture_check(dev, tmp):
+    """Where ``grpc`` is installed: the gRPC transport on the card answers
+    the golden fixtures' three requests (``go/scorerclient/testdata``) with
+    the fixtures' replies, timings pinned as ``go/gen_fixtures.py`` pins
+    them, and the Assign's ``path`` the port's own label."""
+    import os
+
+    import grpc
+
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.bridge.server import SERVICE, ScorerServicer, make_server
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "go", "scorerclient",
+                        "testdata")
+
+    def load(name):
+        with open(os.path.join(data, name), "rb") as f:
+            return f.read()
+
+    sv = ScorerServicer(device=dev)
+    sv._epoch = sv.telemetry.spans.epoch = "0601den0"
+    server = make_server(servicer=sv)
+    path = os.path.join(tmp, "grpc.sock")
+    server.add_insecure_port(f"unix://{path}")
+    server.start()
+    channel = grpc.insecure_channel(f"unix://{path}")
+    try:
+        def rpc(name, req_file, reply_cls):
+            call = channel.unary_unary(
+                f"/{SERVICE}/{name}", request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=reply_cls.FromString)
+            return call(wire.MESSAGES[[m.__name__ for m in wire.MESSAGES].index(
+                name + "Request")].FromString(load(req_file)), timeout=300)
+
+        sync = rpc("Sync", "sync_request.bin", wire.SyncReply)
+        score = rpc("Score", "score_request.bin", wire.ScoreReply)
+        assign = rpc("Assign", "assign_request.bin", wire.AssignReply)
+    finally:
+        channel.close()
+        server.stop(None)
+    score.build_ms = 0.125
+    want = wire.AssignReply.FromString(load("assign_reply.bin"))
+    want.path, want.cycle_ms = assign.path, assign.cycle_ms
+    same = (sync.SerializeToString() == load("sync_reply.bin")
+            and score.SerializeToString() == load("score_reply.bin")
+            and assign == want and assign.path == "cuda")
+    if not same:
+        raise AssertionError("bridge: the gRPC transport's replies differ from the fixtures")
+    return {"fixture_replies": "equal (Assign path 'cuda', the fixture's 'scan')",
+            "assign_path": assign.path}
+
+
+def bridge_phase(card, dev, snap, lists, headline):
+    """The ``bridge`` line (phase 11): the serving seam at the headline,
+    through the raw-UDS transport, every reply exact against the in-process
+    call."""
+    import json as _json
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.bridge.plugin_sim import GoPluginSim, NUM_AXES
+    from koordinator_tpu_torch.bridge.server import ScorerServicer
+    from koordinator_tpu_torch.bridge.state import ResidentState, numpy_to_tensor
+    from koordinator_tpu_torch.bridge.udsserver import (
+        METHOD_ASSIGN, METHOD_SCORE, METHOD_SYNC, RawUdsServer,
+    )
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.harness.golden import build_sync_request
+    from koordinator_tpu_torch.solver import (
+        dense, kernel_demotions, masked_top_k, run_cycle, score_cycle, score_upper_bound,
+        wide,
+    )
+
+    node_list, pod_list, gangs, quotas = lists
+    P, N = len(pod_list), len(node_list)
+    K = 32
+    tmp = tempfile.mkdtemp()
+    servers = []
+    line = {"snapshot": f"quota_colocation {P} pods x {N} nodes, 16 tenants, seed 0",
+            "transport": "raw UDS (bridge/udsserver.py)", "card": card}
+    try:
+        import grpc  # noqa: F401
+        line["grpc_importable"] = True
+    except ImportError:
+        line["grpc_importable"] = False
+    exact = {}
+
+    def start(name, **kw):
+        path = os.path.join(tmp, f"{name}.sock")
+        srv = RawUdsServer(path, servicer=ScorerServicer(device=dev, **kw)).start()
+        servers.append(srv)
+        return srv, UdsClient(path)
+
+    def counts():
+        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+
+    def reset():
+        torch.cuda.synchronize()
+        dense.reset_launches()
+        wide.reset_launches()
+
+    def same_placements(reply, want):
+        return (list(reply.assignment) == want.assignment[:P].cpu().tolist()
+                and list(reply.status) == want.status[:P].cpu().tolist())
+
+    def in_process_cycle(s, cfg=CycleConfig()):
+        def once():
+            r = run_cycle(s, cfg)
+            return r.assignment.cpu(), r.status.cpu()
+        return [rpc_timed(once)[1:] for _ in range(TIMED_RUNS)]
+
+    try:
+        # the full Sync
+        t0 = time.perf_counter()
+        req, _ = build_sync_request(node_list, pod_list, gangs, quotas,
+                                    node_bucket=N, pod_bucket=P)
+        payload = req.SerializeToString()
+        line["build_sync_request_s"] = time.perf_counter() - t0
+        line["full_sync_bytes"] = len(payload)
+        srv, cli = start("main")
+        sync, ev, wall = rpc_timed(lambda: cli.call(METHOD_SYNC, req, wire.SyncReply))
+        full_sync = [(ev, wall)]
+        if (sync.nodes, sync.pods) != (N, P):
+            raise AssertionError(f"bridge: sync reply {sync}")
+
+        def sync_in_process(msg):
+            st = ResidentState(device=dev)
+            return rpc_timed(lambda: st.apply_sync(wire.SyncRequest.FromString(
+                msg.SerializeToString())))[1:]
+
+        full_sync_ip = [sync_in_process(req) for _ in range(3)]
+
+        # the first Assign: K2, exactly one launch, no demotion
+        reset()
+        first, ev, wall = rpc_timed(lambda: cli.call(
+            METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sync.snapshot_id), wire.AssignReply))
+        launches = counts()
+        if launches != {"cycle_dense": 0, "cycle_wide": 1, "wave_cycle": 0} or kernel_demotions():
+            raise AssertionError(f"bridge: first Assign launched {launches}, "
+                                 f"demotions {kernel_demotions()}")
+        exact["first_assign_vs_phase4_run_cycle"] = same_placements(first, headline)
+        if first.path != "cuda" or not exact["first_assign_vs_phase4_run_cycle"]:
+            raise AssertionError(f"bridge: first Assign (path {first.path}) differs from "
+                                 "phase 4's run_cycle")
+        line["first_assign"] = {"rpc_ms_cuda_events": ev, "rpc_ms_host_wall": wall,
+                                "launches": launches, "path": first.path,
+                                "note": "includes the cold snapshot build"}
+        line["resident_leaves_compared"] = resident_vs_encoded(srv.servicer.state.snapshot(),
+                                                               snap)
+        exact["resident_snapshot_vs_encode_snapshot"] = True
+
+        # three warm delta Syncs, each moving the cpu of three nodes, each
+        # followed by an Assign
+        cur = map_snapshot(snap, lambda t: t.clone())
+        prev = np.frombuffer(req.nodes.requested.data, "<i8").reshape(N, -1).copy()
+        delta_rpc, assign_rpc, delta_bytes, assign_split = [], [], [], []
+        warm_launches = dict.fromkeys(counts(), 0)
+        for rep in range(3):
+            nxt = prev.copy()
+            nxt[:3, 0] += 500 + rep
+            warm = wire.SyncRequest()
+            warm.nodes.requested.CopyFrom(numpy_to_tensor(nxt, prev))
+            delta_bytes.append(warm.ByteSize())
+            if delta_bytes[-1] * 100 >= len(payload):
+                raise AssertionError(f"bridge: delta frame {delta_bytes[-1]} B is not under "
+                                     f"1 % of the full {len(payload)} B")
+            s2, ev, wall = rpc_timed(lambda: cli.call(METHOD_SYNC, warm, wire.SyncReply))
+            delta_rpc.append((ev, wall))
+            if srv.servicer.state.last_sync_path != "warm":
+                raise AssertionError("bridge: the delta Sync did not land warm")
+            reset()
+            reply, ev, wall = rpc_timed(lambda: cli.call(
+                METHOD_ASSIGN, wire.AssignRequest(snapshot_id=s2.snapshot_id),
+                wire.AssignReply))
+            assign_rpc.append((ev, wall))
+            assign_split.append(dict(cli.split))
+            for kernel, n in counts().items():
+                warm_launches[kernel] += n
+            cur.nodes.requested[:3, 0] = torch.from_numpy(nxt[:3, 0]).to(dev)
+            if not same_placements(reply, run_cycle(cur)):
+                raise AssertionError(f"bridge: warm Assign {rep} != in-process run_cycle")
+            prev = nxt
+        exact["warm_assigns_vs_run_cycle"] = True
+        st_ip = ResidentState(device=dev)
+        st_ip.apply_sync(wire.SyncRequest.FromString(payload))
+        st_ip.snapshot()
+        ip_delta = []
+        for rep in range(TIMED_RUNS):
+            base = np.asarray(st_ip.node_requested)
+            nxt = base.copy()
+            nxt[:3, 0] += 1
+            msg = wire.SyncRequest()
+            msg.nodes.requested.CopyFrom(numpy_to_tensor(nxt, base))
+            ip_delta.append(rpc_timed(lambda: st_ip.apply_sync(
+                wire.SyncRequest.FromString(msg.SerializeToString())))[1:])
+        line["delta_sync"] = {**seam_cost(delta_rpc, ip_delta), "bytes": delta_bytes,
+                              "full_bytes": len(payload)}
+        line["warm_assign"] = {**seam_cost(assign_rpc, in_process_cycle(cur)),
+                               "launches": warm_launches,
+                               "client_split": median_split(assign_split)}
+
+        # the Score RPC, then a warm Score after a 64-node delta
+        hi = score_upper_bound(CycleConfig())
+
+        def score_in_process(s):
+            scores, feasible = score_cycle(s)
+            ts, ti = masked_top_k(scores, feasible, k=K, hi=hi)
+            ok = torch.gather(feasible, 1, ti.long())
+            return ts.cpu().numpy(), ti.cpu().numpy(), ok.cpu().numpy()
+
+        def flat_equal(reply, s):
+            ts, ti, ok = score_in_process(s)
+            f = reply.flat
+            return (np.frombuffer(f.pod_index, "<i4").tolist() == list(range(P))
+                    and np.frombuffer(f.counts, "<i4").tolist() == ok[:P].sum(1).tolist()
+                    and f.node_index == ti[:P][ok[:P]].astype("<i4").tobytes()
+                    and f.score == ts[:P][ok[:P]].astype("<i8").tobytes())
+
+        sid = s2.snapshot_id
+        score, ev, wall = rpc_timed(lambda: cli.call(METHOD_SCORE, wire.ScoreRequest(
+            snapshot_id=sid, top_k=K, flat=True), wire.ScoreReply))
+        exact["score_vs_in_process"] = flat_equal(score, cur)
+        if not exact["score_vs_in_process"]:
+            raise AssertionError("bridge: Score reply != in-process score_cycle + masked_top_k")
+        line["first_score"] = {"rpc_ms_cuda_events": ev, "rpc_ms_host_wall": wall,
+                               "reply_bytes": score.ByteSize()}
+        rows = np.arange(64) * (N // 64)
+        nxt = prev.copy()
+        nxt[rows, 1] += 1024
+        warm = wire.SyncRequest()
+        warm.nodes.requested.CopyFrom(numpy_to_tensor(nxt, prev))
+        s3 = cli.call(METHOD_SYNC, warm, wire.SyncReply)
+        cur.nodes.requested[torch.from_numpy(rows).to(dev), 1] = torch.from_numpy(
+            nxt[rows, 1]).to(dev)
+        def incr_launches():
+            text = srv.servicer.telemetry.metrics.registry.render()
+            return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                       if ln.startswith('koord_scorer_score_incr_total{result="incr"}'))
+
+        incr_before = incr_launches()
+        iscore, ev, wall = rpc_timed(lambda: cli.call(METHOD_SCORE, wire.ScoreRequest(
+            snapshot_id=s3.snapshot_id, top_k=K, flat=True), wire.ScoreReply))
+        if incr_launches() != incr_before + 1:
+            raise AssertionError("bridge: the warm Score did not take the incremental engine")
+        exact["incremental_score_vs_full_rescore"] = flat_equal(iscore, cur)
+        if not exact["incremental_score_vs_full_rescore"]:
+            raise AssertionError("bridge: incremental Score != a full rescore")
+        line["incremental_score"] = {"rpc_ms_cuda_events": ev, "rpc_ms_host_wall": wall,
+                                     "dirty_node_rows": 64, "engine": "incr"}
+        prev = nxt
+
+        # the cold Assign: the resident state replaced, a full Sync, an Assign
+        cold_sync, cold_assign = [], []
+        reset()
+        for _ in range(3):
+            srv.servicer.state = ResidentState(device=dev)
+            sc, ev, wall = rpc_timed(lambda: cli.call(METHOD_SYNC, req, wire.SyncReply))
+            cold_sync.append((ev, wall))
+            reply, ev, wall = rpc_timed(lambda: cli.call(
+                METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sc.snapshot_id),
+                wire.AssignReply))
+            cold_assign.append((ev, wall))
+            if not same_placements(reply, headline):
+                raise AssertionError("bridge: cold Assign != phase 4's run_cycle")
+        cold_launches = counts()
+        exact["cold_assigns_vs_run_cycle"] = True
+        line["full_sync"] = seam_cost(full_sync + cold_sync, full_sync_ip)
+
+        def cold_in_process():
+            st = ResidentState(device=dev)
+            st.apply_sync(wire.SyncRequest.FromString(payload))
+            r = run_cycle(st.snapshot(), CycleConfig(), i32_ok=st.i32_fits())
+            return r.assignment.cpu(), r.status.cpu()
+
+        line["cold_assign"] = {
+            **seam_cost(cold_assign, [rpc_timed(cold_in_process)[1:] for _ in range(3)]),
+            "launches": cold_launches,
+            "note": "the RPC excludes the Sync's decode, the in-process call includes it"}
+        cli.close()
+
+        # the storm: 8 clients x 16 Scores, memo and incremental engine off
+        srv_b, cli_b = start("storm", score_memo=False, score_incr=False)
+        sb = cli_b.call(METHOD_SYNC, req, wire.SyncReply)
+        score_req = wire.ScoreRequest(snapshot_id=sb.snapshot_id, top_k=K, flat=True)
+        serial, score_split = [], []
+        for _ in range(TIMED_RUNS):
+            serial.append(rpc_timed(
+                lambda: cli_b.call(METHOD_SCORE, score_req, wire.ScoreReply)))
+            score_split.append({**cli_b.split, "server_build_ms": serial[-1][0].build_ms})
+        want = serial[0][0]
+        want.build_ms = 0.0
+        exact["score_serial_vs_in_process"] = flat_equal(want, snap)
+        if not exact["score_serial_vs_in_process"]:
+            raise AssertionError("bridge: serial Score != in-process")
+        line["score"] = {**seam_cost([r[1:] for r in serial],
+                                     [rpc_timed(lambda: score_in_process(snap))[1:]
+                                      for _ in range(TIMED_RUNS)]),
+                         "client_split": median_split(score_split),
+                         "reply_bytes": want.ByteSize()}
+        cli_b.close()
+        before = srv_b.servicer.dispatch.stats()
+        replies, errors = [], []
+        barrier = threading.Barrier(8)
+
+        def client():
+            c = UdsClient(srv_b.path)
+            try:
+                barrier.wait(timeout=120)
+                for _ in range(16):
+                    replies.append(c.call(METHOD_SCORE, score_req, wire.ScoreReply))
+            except Exception as exc:  # surfaced below
+                errors.append(exc)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        w0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("bridge: a storm client did not finish")
+        storm_s = time.perf_counter() - w0
+        if errors or len(replies) != 128:
+            raise AssertionError(f"bridge: storm errors {errors[:3]}, {len(replies)} replies")
+        for r in replies:
+            r.build_ms = 0.0
+        exact["storm_vs_serial"] = all(r == want for r in replies)
+        if not exact["storm_vs_serial"]:
+            raise AssertionError("bridge: a storm reply differs from the serial reply")
+        after = srv_b.servicer.dispatch.stats()
+        line["storm"] = {"clients": 8, "requests": after["requests"] - before["requests"],
+                         "batches": after["batches"] - before["batches"],
+                         "max_occupancy": after["max_occupancy"], "wall_s": storm_s,
+                         "scores_per_s": 128 / storm_s}
+
+        # K3 and K1 through the same servicer
+        srv_w, cli_w = start("wave", cfg=CycleConfig(**WAVE_CFG))
+        sw = cli_w.call(METHOD_SYNC, req, wire.SyncReply)
+        reset()
+        reply, ev, wall = rpc_timed(lambda: cli_w.call(
+            METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sw.snapshot_id), wire.AssignReply))
+        k3 = counts()
+        if k3 != {"cycle_dense": 0, "cycle_wide": 0, "wave_cycle": 1} or not same_placements(
+                reply, headline):
+            raise AssertionError(f"bridge: wave Assign launched {k3} or differs")
+        line["wave_assign"] = {**seam_cost([(ev, wall)], in_process_cycle(
+            snap, CycleConfig(**WAVE_CFG))), "launches": k3}
+        cli_w.close()
+        big = [dict(n) for n in node_list]
+        big[0] = dict(big[0], allocatable=dict(big[0]["allocatable"], memory=1 << 45))
+        req_x, _ = build_sync_request(big, pod_list, gangs, quotas, node_bucket=N, pod_bucket=P)
+        snap_x, _ = g.encode_quota_lists(big, pod_list, gangs, quotas, node_bucket=N,
+                                         pod_bucket=P, device=dev)
+        srv_x, cli_x = start("int64")
+        sx = cli_x.call(METHOD_SYNC, req_x, wire.SyncReply)
+        reset()
+        reply, ev, wall = rpc_timed(lambda: cli_x.call(
+            METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sx.snapshot_id), wire.AssignReply))
+        k1 = counts()
+        if k1 != {"cycle_dense": 1, "cycle_wide": 0, "wave_cycle": 0} or not same_placements(
+                reply, run_cycle(snap_x)):
+            raise AssertionError(f"bridge: int64 Assign launched {k1} or differs")
+        exact["wave_and_int64_assigns_vs_run_cycle"] = True
+        line["int64_assign"] = {**seam_cost([(ev, wall)], in_process_cycle(snap_x)),
+                                "launches": k1,
+                                "cluster": "node 0 with 32 TiB of memory, past the int32 "
+                                           "kernels' score bound"}
+        cli_x.close()
+
+        # the Go plugin's flow
+        srv_p = RawUdsServer(os.path.join(tmp, "plugin.sock"),
+                             servicer=ScorerServicer(device=dev)).start()
+        servers.append(srv_p)
+
+        def vec(cpu=0, mem=0, pods=0):
+            v = [0] * NUM_AXES
+            v[0], v[1], v[3] = cpu, mem, pods
+            return v
+
+        alloc = vec(cpu=8000, mem=16384, pods=110)
+        nodes1 = [(f"plugin-node-{i}", alloc, vec(cpu=1000, mem=1024, pods=5))
+                  for i in range(4)]
+        nodes2 = list(nodes1)
+        nodes2[2] = ("plugin-node-2", alloc, vec(cpu=1500, mem=1536, pods=6))
+        sim = GoPluginSim(srv_p.path)
+        sim.metrics = {"plugin-node-0": vec(cpu=500, mem=512)}
+        pod_vec = vec(cpu=500, mem=512, pods=1)
+        sim.pre_score(nodes1, "plugin-pod-1", pod_vec)
+        got = sim.pre_score(nodes2, "plugin-pod-2", pod_vec)
+        sim._drop_client()
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "go",
+                               "scorerclient", "testdata", "expected.json")) as f:
+            flow = _json.load(f)["plugin_flow"]
+        want_flow = {flow["names"][n]: s for n, s in zip(flow["score2_reply"]["node_index"],
+                                                         flow["score2_reply"]["score"])}
+        exact["plugin_flow_vs_expected_json"] = got == want_flow
+        if not exact["plugin_flow_vs_expected_json"]:
+            raise AssertionError(f"bridge: plugin flow scores {got} != {want_flow}")
+        if ([m for m, _ in sim.sent_frames] != [1, 2, 1, 2]
+                or srv_p.servicer.state.last_sync_path != "warm"):
+            raise AssertionError(f"bridge: plugin flow frames {sim.sent_frames}")
+        line["plugin_flow"] = {"frames": sim.sent_frames, "scores": got}
+        # everything above ran on the port's codec: the protobuf runtime,
+        # installed or not, must not have been loaded
+        line["protobuf_loaded_by_the_seam"] = "google.protobuf" in sys.modules
+        if line["protobuf_loaded_by_the_seam"]:
+            raise AssertionError("bridge: the seam loaded the protobuf runtime")
+        if line["grpc_importable"]:
+            line["grpc"] = grpc_fixture_check(dev, tmp)
+            exact["grpc_fixture_replies"] = True
+    finally:
+        for srv in servers:
+            srv.stop()
+    if not all(exact.values()):
+        raise AssertionError(f"bridge: not exact: {exact}")
+    line["exact"] = exact
+    line["timed_runs"] = TIMED_RUNS
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -778,7 +1346,7 @@ def main() -> int:
 
     # phase 4: the headline snapshot
     t0 = time.perf_counter()
-    snap = g.quota_colocation_snapshot(device=dev)[0]
+    snap, *cluster_lists, _ = g.quota_colocation_snapshot(device=dev)
     encode_s = time.perf_counter() - t0
     cfg = CycleConfig()
     cfg_w = CycleConfig(**WAVE_CFG)
@@ -973,6 +1541,10 @@ def main() -> int:
     # phase 9: the sparse candidate engine
     print(json.dumps({"sparse": sparse_phase(card, dev)}))
     phase_done("9_sparse")
+
+    # phase 11: the serving seam
+    print(json.dumps({"bridge": bridge_phase(card, dev, snap, cluster_lists, result)}))
+    phase_done("11_bridge")
 
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))

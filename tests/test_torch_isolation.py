@@ -1,6 +1,7 @@
 """The PyTorch port runs where JAX is absent: it imports neither ``jax`` nor
-the JAX package, and ``chip_smoke.py`` refuses to run without a CUDA card or
-without the port beside it."""
+the JAX package nor the protobuf runtime, imports ``grpc`` only inside the
+function that builds the gRPC transport, and ``chip_smoke.py`` refuses to
+run without a CUDA card or without the port beside it."""
 
 import ast
 import json
@@ -28,7 +29,7 @@ def _imported_modules(path: Path):
 
 def _is_forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "koordinator_tpu")
+    return top in ("jax", "jaxlib", "koordinator_tpu") or module.startswith("google.protobuf")
 
 
 def test_no_source_file_imports_jax_or_the_reference():
@@ -37,6 +38,101 @@ def test_no_source_file_imports_jax_or_the_reference():
     for path in files:
         bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _grpc_import_sites(path: Path):
+    """(enclosing function name or None, line) of every ``grpc`` import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    sites = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                names = [child.module]
+            if any(n.split(".")[0] == "grpc" for n in names):
+                sites.append((func, child.lineno))
+            visit(child, inner)
+
+    visit(tree, None)
+    return sites
+
+
+def test_grpc_is_imported_only_by_the_grpc_transport():
+    sites = {str(p.relative_to(REPO)): _grpc_import_sites(p)
+             for p in sorted(PORT.rglob("*.py"))}
+    sites = {p: s for p, s in sites.items() if s}
+    assert list(sites) == ["koordinator_tpu_torch/bridge/server.py"]
+    assert [func for func, _ in sites["koordinator_tpu_torch/bridge/server.py"]] == [
+        "make_server"]
+    # chip_smoke.py reports whether grpc imports and, where it does, holds
+    # the gRPC transport against the fixtures: inside functions only
+    assert all(func is not None for func, _ in _grpc_import_sites(REPO / "chip_smoke.py"))
+
+
+_SEAM = r"""
+import json, os, socket, struct, sys, tempfile
+for blocked in ("jax", "jaxlib", "grpc", "google.protobuf"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+from koordinator_tpu_torch.bridge import wire
+from koordinator_tpu_torch.bridge.udsserver import (
+    METHOD_ASSIGN, METHOD_SCORE, METHOD_SYNC, serve_raw_uds)
+from koordinator_tpu_torch.harness import generators
+from koordinator_tpu_torch.harness.golden import build_sync_request
+nodes, pods, gangs, quotas = generators.quota_colocation(pods=24, nodes=6)
+req, _ = build_sync_request(nodes, pods, gangs, quotas)
+path = os.path.join(tempfile.mkdtemp(), "scorer.sock")
+srv = serve_raw_uds(path, device="cpu")
+conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+conn.settimeout(120)
+conn.connect(path)
+
+def recv(n):
+    buf = b""
+    while len(buf) < n:
+        chunk = conn.recv(n - len(buf))
+        assert chunk, "server closed the connection"
+        buf += chunk
+    return buf
+
+def call(method, msg, cls):
+    body = msg.SerializeToString()
+    conn.sendall(struct.pack(">BI", method, len(body)) + body)
+    status, n = struct.unpack(">BI", recv(5))
+    payload = recv(n)
+    assert status == 0, payload
+    return cls.FromString(payload)
+
+try:
+    sync = call(METHOD_SYNC, req, wire.SyncReply)
+    score = call(METHOD_SCORE, wire.ScoreRequest(snapshot_id=sync.snapshot_id, top_k=3,
+                                                 flat=True), wire.ScoreReply)
+    assign = call(METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sync.snapshot_id),
+                  wire.AssignReply)
+finally:
+    conn.close()
+    srv.stop()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "grpc", "koordinator_tpu") or m.startswith("google.protobuf")))
+print(json.dumps({"pods": sync.pods, "groups": len(score.flat.counts) // 4,
+                  "assigned": len(assign.assignment), "path": assign.path,
+                  "loaded": loaded}))
+"""
+
+
+def test_seam_serves_over_uds_with_jax_grpc_and_protobuf_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _SEAM], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"pods": 24, "groups": 24, "assigned": 24, "path": "scan",
+                   "loaded": []}
 
 
 _ISOLATED = r"""
