@@ -84,7 +84,28 @@ Phases (any failure raises and exits non-zero, printing no result):
     K1 through the servicer, the Go plugin's flow equal to the fixtures'
     ``expected.json``, no protobuf runtime loaded, and, where ``grpc``
     imports, the gRPC transport on the golden fixtures; each RPC timed
-    against its in-process call.
+    against its in-process call;
+12. (run before phase 10's lines) ``trace``: the reference's accelerator
+    trace (``harness/anchor.py TRACE_ANCHOR_CFG``: 512 nodes x 2,048 pod
+    slots, 96 events; its digest against the constant a CPU test
+    recomputes from the JAX package) replayed by ``TraceReplay`` through
+    the port's ``ScorerClient``: over the raw framing (97 parity checks
+    against the serial oracle, no build and no demotion in the measured
+    pass, exactly one K2 launch per Assign, the engine's K2 launches of
+    the cold step and of every 8th event exact against
+    ``cycle_wide_reference`` on the CPU on their own inputs, one Sync
+    carrying a tensor per event that changes one, the SLO verdicts,
+    p50/p99 per RPC and per band); over gRPC where ``grpc`` imports (three
+    K2 launches held the same way); a ledger pass (``devprof_sample=1``,
+    the engine alone: per-boundary sampled spans, and their sum per RPC
+    over its host wall); a Profile pass (admin method 5 over the
+    socket opens a ``torch.profiler`` window over about 20 steps: the
+    device busy share and its split by kernel family); an exported pass
+    assembled with no incomplete trace; and the trace at the headline
+    cluster size (2,000 nodes x 10,000 pod slots, 24 events, 25 parity
+    checks, three K2 launches held against the plain version).  Every
+    pass checks the engine's Syncs by kind.  The ``kernels`` line carries each kernel's launches on the
+    trace path (``trace_launches``).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -1223,6 +1244,420 @@ def bridge_phase(card, dev, snap, lists, headline):
     return line
 
 
+def nearest_rank(values, q):
+    """The nearest-rank quantile ``q`` of ``values``."""
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, max(0, int(q * len(vals) + 0.5) - 1))]
+
+
+def replay_latency(report):
+    """Exact p50 and p99 in ms of each RPC of a replay's measured pass, and
+    of the whole step per band, from its timeline."""
+    per_rpc = {"sync": [], "score": [], "assign": [], "cycle": []}
+    per_band = {}
+    for cyc in report.timeline:
+        for span in cyc["spans"]:
+            per_rpc[span["name"]].append(span["dur_ms"])
+        per_rpc["cycle"].append(cyc["notes"]["latency_ms"])
+        per_band.setdefault(cyc["notes"]["band"], []).append(cyc["notes"]["latency_ms"])
+
+    def q(vals):
+        return {"p50": statistics.median(vals), "p99": nearest_rank(vals, 0.99),
+                "n": len(vals)}
+
+    return {"rpc": {k: q(v) for k, v in per_rpc.items()},
+            "band": {k: q(v) for k, v in sorted(per_band.items())}}
+
+
+# the port's kernels and op families, by CUDA kernel name, for the Profile
+# pass's busy-time split (first match wins)
+KERNEL_FAMILIES = (
+    ("K3 wave_cycle_kernel", ("wave_cycle_kernel",)),
+    ("K1/K2 cycle_kernel", ("cycle_kernel",)),
+    ("torch sort/topk", ("sort", "Sort", "topk", "radix", "bitonic")),
+    ("torch reduce", ("reduce_kernel", "Reduce")),
+    ("torch index/scatter/gather", ("index", "scatter", "gather", "Index", "Scatter")),
+    ("torch cat/copy", ("CatArray", "copy_kernel", "Copy")),
+    ("torch elementwise", ("elementwise", "Elementwise")),
+)
+
+
+def profile_busy(doc):
+    """The device busy share of a chrome trace: the union of its kernel,
+    memcpy and memset intervals over the profiler's window, and the share
+    of that busy time in each kernel family."""
+    events = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+    window = [e for e in events if e.get("cat") == "Trace"
+              or str(e.get("name", "")).startswith("PyTorch Profiler")]
+    span = window[0] if window else None
+    lo = float(span["ts"]) if span else min(float(e["ts"]) for e in events)
+    hi = (float(span["ts"]) + float(span["dur"]) if span
+          else max(float(e["ts"]) + float(e.get("dur", 0)) for e in events))
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not gpu:
+        raise AssertionError("trace: the profiler recorded no kernel, memcpy or memset "
+                             "(is CUPTI tracing the card?)")
+    intervals = sorted((max(lo, float(e["ts"])), min(hi, float(e["ts"]) + float(e["dur"])))
+                       for e in gpu)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in intervals:
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    fam_us, names = {}, {}
+    for e in gpu:
+        name = str(e.get("name", ""))
+        if e["cat"] == "gpu_memcpy":
+            fam = "memcpy"
+        elif e["cat"] == "gpu_memset":
+            fam = "memset"
+        else:
+            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)),
+                       "other kernels")
+        fam_us[fam] = fam_us.get(fam, 0.0) + float(e["dur"])
+        names[name[:80]] = names.get(name[:80], 0.0) + float(e["dur"])
+    total = sum(fam_us.values())
+    return {
+        "window_ms": (hi - lo) / 1e3, "window_from": "profiler span" if span else "events",
+        "busy_ms": busy / 1e3, "busy_share": busy / (hi - lo), "gpu_events": len(gpu),
+        "family_share_of_kernel_time": {k: v / total for k, v in sorted(
+            fam_us.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+            names.items(), key=lambda kv: -kv[1])[:8]},
+    }
+
+
+# the RPC whose path runs each launch boundary, for every boundary the
+# port registers (devprof's names); a boundary missing here fails the
+# ledger pass
+BOUNDARY_RPC = {
+    "solver.resident.apply_flat_delta": "sync",
+    "solver.greedy.score_cycle": "score", "solver.topk.masked_top_k": "score",
+    "solver.incremental.rescore_dirty": "score",
+    "solver.candidates._build": "score", "solver.candidates._count_blocks": "score",
+    "solver.candidates._refresh": "score", "solver.candidates.score_candidates": "score",
+    "solver.wide.cycle_wide_cuda": "assign", "solver.wide.wave_cycle_cuda": "assign",
+    "solver.dense.cycle_dense_cuda": "assign", "solver.terms.term_extras": "assign",
+}
+
+
+class K2Tap:
+    """Holds K2 against its plain version on a replay's own launches.
+
+    Inside ``with``, ``wide.cycle_wide_cuda`` is wrapped: each launch
+    numbered in ``keep`` (0-based, in launch order from entry) keeps a
+    device copy of its inputs and outputs, made on the launch's stream, so
+    the replay never waits for it.  ``check`` then runs
+    ``cycle_wide_reference`` on the CPU on each kept launch's inputs and
+    fails on any difference in its four outputs."""
+
+    def __init__(self, keep):
+        self.keep = frozenset(keep)
+        self.records = {}
+        self.seen = 0
+
+    def __enter__(self):
+        from koordinator_tpu_torch.solver import wide
+
+        self._wide, self._launch = wide, wide.cycle_wide_cuda
+
+        def tapped(inp, cfg, defines=()):
+            i, self.seen = self.seen, self.seen + 1
+            if i not in self.keep:
+                return self._launch(inp, cfg, defines)
+            held = tensors_to(inp, lambda t: t.clone())
+            outs = self._launch(inp, cfg, defines)
+            self.records[i] = (held, cfg, tuple(o.clone() for o in outs))
+            return outs
+
+        wide.cycle_wide_cuda = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._wide.cycle_wide_cuda = self._launch
+        return False
+
+    def check(self, name):
+        import torch
+
+        if set(self.records) != self.keep:
+            raise AssertionError(f"trace {name}: K2 launches {sorted(self.keep - set(self.records))}"
+                                 f" of {sorted(self.keep)} never ran ({self.seen} launches)")
+        t0 = time.perf_counter()
+        err = 0
+        for i, (inp, cfg, outs) in sorted(self.records.items()):
+            want = self._wide.cycle_wide_reference(tensors_to(inp, lambda t: t.cpu()), cfg)
+            got = tuple(o.cpu() for o in outs)
+            for field, a, b in zip(("chosen", "nreq", "nest", "quse"), got, want):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(f"trace {name}: K2 launch {i} {field} is "
+                                         f"{a.dtype}{list(a.shape)}, plain {b.dtype}{list(b.shape)}")
+            err = max(err, max_abs_err(got, want))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"trace {name}: K2 launch {i} differs from its plain "
+                                     f"version (max abs err {max_abs_err(got, want)})")
+        return {"launches_held": sorted(self.keep), "of_launches": self.seen,
+                "plain": "cycle_wide_reference on the CPU", "max_abs_err": err,
+                "plain_s": time.perf_counter() - t0}
+
+
+def tensors_to(inp, move):
+    """``inp`` (a ``CycleInputs``) with ``move`` applied to each tensor."""
+    import torch
+
+    return dataclasses.replace(inp, **{
+        f.name: move(getattr(inp, f.name)) for f in dataclasses.fields(inp)
+        if isinstance(getattr(inp, f.name), torch.Tensor)})
+
+
+def trace_phase(card, dev):
+    """The ``trace`` line (phase 12): the trace replay through the port's
+    ScorerClient on the card, engine against the serial oracle."""
+    import os
+    import socket
+    import struct
+    import tempfile
+
+    import torch
+
+    from koordinator_tpu_torch.bridge.server import ScorerServicer
+    from koordinator_tpu_torch.bridge.udsserver import METHOD_PROFILE, RawUdsServer
+    from koordinator_tpu_torch.harness.anchor import (
+        TRACE_ANCHOR_CFG, TRACE_ANCHOR_SHA256, TRACE_HEADLINE_CFG, TRACE_HEADLINE_SHA256,
+    )
+    from koordinator_tpu_torch.harness.trace import (
+        TraceConfig, TraceReplay, default_slo_specs, generate_trace, tensor_sync_events,
+    )
+    from koordinator_tpu_torch.obs import devprof
+    from koordinator_tpu_torch.obs.assemble import assemble
+    from koordinator_tpu_torch.obs.scorer_metrics import SYNC_TOTAL, TRACE_CYCLE
+    from koordinator_tpu_torch.obs.slo import evaluate_slos, slos_pass
+    from koordinator_tpu_torch.solver import dense, kernel_demotions, wide
+
+    line = {"card": card, "transport": "raw UDS through ScorerClient('raw://...')"}
+
+    def counts():
+        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+
+    def reset():
+        torch.cuda.synchronize()
+        dense.reset_launches()
+        wide.reset_launches()
+
+    tensor_events = {}
+
+    def checked(name, trace, report, oracle=True):
+        """Parity on every step, no build and no demotion in the measured
+        pass, and the warm path really ran: every event that changes a
+        tensor column committed a Sync that carried a tensor, and deltas
+        among them reached ``apply_flat_delta``; the pass's summary."""
+        steps = len(trace.events) + 1
+        if oracle and report.parity_checks != steps:
+            raise AssertionError(f"trace {name}: {report.parity_checks} parity checks, "
+                                 f"want {steps}")
+        if report.retraces or report.builds or kernel_demotions():
+            raise AssertionError(f"trace {name}: {report.builds} builds, {report.retraces} "
+                                 f"demotions in the measured pass ({kernel_demotions()})")
+        if trace.digest() not in tensor_events:
+            tensor_events[trace.digest()] = tensor_sync_events(trace)
+        syncs = {kind: int(report.registry.get(SYNC_TOTAL, {"kind": kind}) or 0)
+                 for kind in ("full", "delta", "mixed", "scalar")}
+        syncs["events_changing_a_tensor"] = tensor_events[trace.digest()]
+        if (syncs["full"] + syncs["delta"] + syncs["mixed"] != 1 + syncs["events_changing_a_tensor"]
+                or syncs["delta"] + syncs["mixed"] == 0
+                or syncs["full"] + syncs["delta"] + syncs["mixed"] + syncs["scalar"] != steps):
+            raise AssertionError(f"trace {name}: the engine's Syncs by kind {syncs}: want one "
+                                 "full, then one carrying a tensor per event that changes one")
+        return {"events": report.events_replayed, "parity_checks": report.parity_checks,
+                "builds": report.builds, "demotions": report.retraces, "syncs": syncs,
+                "wall_ms": report.wall_ms, "latency_ms": replay_latency(report)}
+
+    def held(name, trace, steps, **kw):
+        """A replay (warm-up and oracle on: one engine and one oracle
+        Assign a step, each one K2 launch) whose engine K2 launches of the
+        measured pass at ``steps`` (0 = the cold step) are held against the
+        plain version."""
+        first = 2 * (len(trace.events) + 1)  # the warm-up pass's launches
+        with K2Tap(first + 2 * s for s in steps) as tap:
+            report = TraceReplay(trace, **kw).run()
+        return report, tap.check(name)
+
+    # 1. the reference's accelerator trace, raw transport
+    trace = generate_trace(TraceConfig(**TRACE_ANCHOR_CFG))
+    if trace.digest() != TRACE_ANCHOR_SHA256:
+        raise AssertionError(f"trace digest {trace.digest()} != {TRACE_ANCHOR_SHA256}")
+    line["trace"] = {**TRACE_ANCHOR_CFG, "digest": trace.digest(), "top_k": 8,
+                     "cycle_config": "default"}
+    reset()
+    report, k2_plain = held("main", trace, range(0, len(trace.events) + 1, 8), transport="raw")
+    launches = counts()
+    want = 2 * 2 * (len(trace.events) + 1)  # two passes, engine and oracle
+    if launches != {"cycle_dense": 0, "cycle_wide": want, "wave_cycle": 0}:
+        raise AssertionError(f"trace: Assigns launched {launches}, want {want} K2 launches")
+    main = checked("main", trace, report)
+    verdicts = evaluate_slos(report.registry, default_slo_specs(trace.bands()))
+    main.update(launches=launches, launches_note=(
+        "2 passes (warm-up, measured) x 97 steps x 2 servicers, one K2 launch per Assign"),
+        slo=[v.to_doc() for v in verdicts], slo_pass=slos_pass(verdicts),
+        k2_vs_plain=k2_plain)
+    line["raw"] = main
+
+    # 2. the same replay over gRPC, where grpc imports
+    try:
+        import grpc  # noqa: F401
+        line["grpc_importable"] = True
+    except ImportError:
+        line["grpc_importable"] = False
+    if line["grpc_importable"]:
+        grpc_report, grpc_plain = held("grpc", trace, (0, 48, 96), transport="grpc")
+        line["grpc"] = dict(checked("grpc", trace, grpc_report), k2_vs_plain=grpc_plain)
+
+    # 3. the ledger: every launch timed, the engine alone
+    devprof.reset()
+    t_start = time.time()
+    ledger = TraceReplay(trace, transport="raw", warmup=False, oracle=False,
+                         engine_kw={"devprof_sample": 1}).run()
+    setup_ms = (ledger.timeline[0]["started_unix"] - t_start) * 1e3
+    summary = devprof.summary()
+    devprof.configure(sample=0)
+    devprof.reset()
+    led = checked("ledger", trace, ledger, oracle=False)
+    top = sorted(((n, b) for n, b in summary["boundaries"].items() if b["sampled"]),
+                 key=lambda nb: -nb[1]["device_us_total"])
+    unmapped = sorted(set(summary["boundaries"]) - set(BOUNDARY_RPC))
+    if unmapped:
+        raise AssertionError(f"trace ledger: boundaries with no RPC: {unmapped}")
+    # the cold step and every event on both sides of the ratio
+    host_ms = dict(ledger.cold_ms)
+    for labels, _bounds, _cum, total, _count in ledger.registry.histogram_series(TRACE_CYCLE):
+        if labels["rpc"] in host_ms:
+            host_ms[labels["rpc"]] += total
+    span_ms = {rpc: 0.0 for rpc in host_ms}
+    for name, b in top:
+        span_ms[BOUNDARY_RPC[name]] += b["device_us_total"] / 1e3
+    led.update(
+        boundaries=[{"boundary": n, "rpc": BOUNDARY_RPC[n], "launches": b["launches"],
+                     "sampled": b["sampled"], "device_us_p50": b["device_us_p50"],
+                     "device_us_p99": b["device_us_p99"],
+                     "device_ms_total": b["device_us_total"] / 1e3} for n, b in top],
+        span_share_of_host_wall={rpc: span_ms[rpc] / host_ms[rpc] for rpc in span_ms},
+        span_ms=span_ms, host_ms=host_ms, cold_ms=ledger.cold_ms,
+        note=("every outermost launch boundary timed with CUDA events on its stream; a "
+              "span of a boundary of several ops holds the host's enqueue gaps between "
+              "them, so it is an upper bound on device time, and the device metric is the "
+              "profile pass's busy share; both sums cover the cold step and the "
+              f"{len(trace.events)} events"),
+    )
+    line["ledger"] = led
+
+    # 4. the Profile admin method over the socket, then a replay in its window
+    tmp = tempfile.mkdtemp()
+    step_ms = main["latency_ms"]["rpc"]["cycle"]["p50"]
+
+    def profile_admin(payload):
+        window = int(payload.strip().decode("ascii")) if payload.strip() else 1000
+        return devprof.capture_profile(tmp, window_ms=window).encode()
+
+    admin_path = os.path.join(tmp, "admin.sock")
+    admin = RawUdsServer(admin_path, servicer=ScorerServicer(device=dev),
+                         admin_handlers={METHOD_PROFILE: profile_admin}).start()
+
+    def open_window(window_ms):
+        """Admin method 5 over the socket: the capture directory."""
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.settimeout(60)
+        try:
+            conn.connect(admin_path)
+            body = str(window_ms).encode()
+            conn.sendall(struct.pack(">BI", METHOD_PROFILE, len(body)) + body)
+            buf = b""
+            while len(buf) < 5 or len(buf) < 5 + struct.unpack(">BI", buf[:5])[1]:
+                chunk = conn.recv(1 << 16)
+                if not chunk:
+                    raise AssertionError("trace: the admin socket closed")
+                buf += chunk
+        finally:
+            conn.close()
+        status, n = struct.unpack(">BI", buf[:5])
+        if status != 0:
+            raise AssertionError(f"trace: Profile failed: {buf[5:5 + n].decode()}")
+        return buf[5:5 + n].decode()
+
+    def written(capture):
+        path = os.path.join(capture, devprof.PROFILE_TRACE)
+        deadline = time.monotonic() + 300
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"trace: no profiler trace at {path}")
+            time.sleep(0.2)
+        return path
+
+    # the window covers the replay's set-up (servers, full Sync, cold step)
+    # as the ledger pass took it, then about 20 steps; a second attempt
+    # takes the set-up the first one saw under the profiler
+    window_ms = int(setup_ms + 20 * step_ms) + 1
+    try:
+        for attempt in range(2):
+            capture = open_window(window_ms)
+            t_call = time.time()
+            prof_report = TraceReplay(trace, transport="raw", warmup=False,
+                                      oracle=False).run()
+            trace_path = written(capture)
+            in_window = sum(1 for c in prof_report.timeline
+                            if t_call <= c["started_unix"] <= t_call + window_ms / 1e3)
+            if in_window >= 15:
+                break
+            first_ms = (prof_report.timeline[0]["started_unix"] - t_call) * 1e3
+            window_ms = int(first_ms + 20 * step_ms) + 1
+    finally:
+        admin.stop()
+        admin.servicer.telemetry.close()
+    if in_window < 10:
+        raise AssertionError(f"trace: {in_window} events started in the {window_ms} ms "
+                             "profiler window")
+    prof = checked("profile", trace, prof_report, oracle=False)
+    with open(trace_path) as f:
+        busy = profile_busy(json.load(f))
+    line["profile"] = {"requested_window_ms": window_ms, "attempts": attempt + 1,
+                       "events_started_in_window": in_window, "replay": prof, **busy,
+                       "note": "window opened over the socket just before a replay: its "
+                               "set-up (servers, full Sync, cold step), then its first events"}
+
+    # 5. the exported pass, assembled
+    export = os.path.join(tmp, "spans")
+    exp_report = TraceReplay(trace, transport="raw", warmup=False, oracle=False,
+                             trace_export=export).run()
+    exp = checked("exported", trace, exp_report, oracle=False)
+    assembly = assemble([export])
+    exp.update(traces=len(assembly.traces), spans=len(assembly.spans_by_id),
+               incomplete=len(assembly.incomplete), orphans=len(assembly.orphan_spans),
+               malformed_lines=assembly.malformed_lines)
+    if exp["incomplete"] or exp["orphans"] or exp["traces"] != 3 * (len(trace.events) + 1):
+        raise AssertionError(f"trace: assembled {exp}")
+    line["exported"] = exp
+
+    # 6. the trace at the headline cluster size
+    big = generate_trace(TraceConfig(**TRACE_HEADLINE_CFG))
+    if big.digest() != TRACE_HEADLINE_SHA256:
+        raise AssertionError(f"headline trace digest {big.digest()} != {TRACE_HEADLINE_SHA256}")
+    reset()
+    big_report, big_plain = held("headline", big, (0, len(big.events) // 2, len(big.events)),
+                                 transport="raw")
+    big_line = checked("headline", big, big_report)
+    big_line.update(launches=counts(), k2_vs_plain=big_plain)
+    if big_line["launches"]["cycle_wide"] != 2 * 2 * (len(big.events) + 1):
+        raise AssertionError(f"trace headline: launches {big_line['launches']}")
+    line["headline"] = {**TRACE_HEADLINE_CFG, "digest": big.digest(), **big_line}
+    return line, launches["cycle_wide"]
+
+
 def main() -> int:
     import torch
 
@@ -1546,26 +1981,32 @@ def main() -> int:
     print(json.dumps({"bridge": bridge_phase(card, dev, snap, cluster_lists, result)}))
     phase_done("11_bridge")
 
+    # phase 12: the trace replay through ScorerClient
+    trace_line, k2_trace_launches = trace_phase(card, dev)
+    print(json.dumps({"trace": trace_line}))
+    phase_done("12_trace")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
-         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, k1_err, k1_ms,
+         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, 0, k1_err, k1_ms,
          k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_err, k2_ms,
-         k2_plain_ms, k2_bound, k2_bound_by),
+         "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_trace_launches,
+         k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, k3_err, k3_ms,
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, k3_err, k3_ms,
          k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "launches": launches, "trace_launches": trace_launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         # no PyTorch call computes a sequential greedy assignment
         "library_ms": None, "parity": "exact",
-    } for name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by in entries]}))
+    } for name, source, replaces, launches, trace_launches, err, ms, plain_ms, bound_ms,
+        bound_by in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

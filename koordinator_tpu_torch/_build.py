@@ -7,13 +7,17 @@ hash of the source, of the package headers it includes (``#include
 "..."``, followed recursively) and of the flags, ``-D`` defines included,
 so an edited source or header is rebuilt and a built one is reused.
 Sources include no PyTorch headers, which keeps a build to seconds.  A
-failed build raises with nvcc's output.
+failed build raises with nvcc's output.  Every load that misses the
+in-process cache — a compile or a load of a library built before — is
+reported to the build listeners (``add_build_listener``): the launch
+ledger and the warm-path guard count them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import re
 import shutil
@@ -21,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+_log = logging.getLogger(__name__)
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -70,7 +76,23 @@ class _Built:
 _LOCK = threading.Lock()
 _SOURCE_LOCKS = {}
 _LOADED = {}
+_BUILD_LISTENERS = []
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def add_build_listener(cb):
+    """``cb(source, defines, seconds)`` fires on the building thread after
+    every load that missed the in-process cache (``seconds`` is 0.0 when a
+    library built before was loaded).  Returns the unregister callable."""
+    with _LOCK:
+        _BUILD_LISTENERS.append(cb)
+
+    def unregister() -> None:
+        with _LOCK:
+            if cb in _BUILD_LISTENERS:
+                _BUILD_LISTENERS.remove(cb)
+
+    return unregister
 
 
 def local_includes(src: Path) -> list:
@@ -134,7 +156,14 @@ def build(source: str, defines=()) -> _Built:
         log = log_path.read_text() if log_path.exists() else ""
         built = _Built(ctypes.CDLL(str(out)), out, seconds, log)
         _LOADED[key] = built
-        return built
+    with _LOCK:
+        listeners = list(_BUILD_LISTENERS)
+    for cb in listeners:
+        try:
+            cb(source, defines, seconds)
+        except Exception:  # a listener is telemetry: its failure must not fail the load
+            _log.exception("build listener failed for %s %s", source, defines)
+    return built
 
 
 def entry(source: str, name: str, argtypes, defines=()):

@@ -32,8 +32,8 @@ Where the port differs from the reference:
   Score reads back the feasibility of its top-k cells only ([P, k], the
   ``ok`` matrix), not the [P, N] feasible tensor — except where the
   brownout cache keeps the full tensors (``KOORD_BROWNOUT_FULL_CELLS``).
-* the sharded Assign (``mesh=``), replication and the device-time ledger
-  are not ported (ROADMAP Queue A items 13, 15 and 12).
+* the sharded Assign (``mesh=``) and replication are not ported (ROADMAP
+  Queue A items 13 and 15).
 """
 
 from __future__ import annotations
@@ -103,6 +103,9 @@ class StatusCode(enum.Enum):
     RESOURCE_EXHAUSTED = "resource exhausted"
     DEADLINE_EXCEEDED = "deadline exceeded"
     UNAVAILABLE = "unavailable"
+    # any other failure the client sees (a server error the codes above do
+    # not name); the servicer never aborts with it
+    UNKNOWN = "unknown"
 
 
 _NP_DTYPES = {
@@ -132,14 +135,22 @@ def read_back(*tensors):
 
 
 def _devprof_span_attrs(span, notes) -> None:
-    """Attach the device-time ledger's notes to a launch/RPC span.  The
-    port's ledger is a no-op (``obs/devprof.py``), so there are none yet
-    and traces carry no device-time attributes."""
+    """Attach the launch ledger's notes (``obs/devprof.py``, drained on the
+    thread that ran the boundaries) to a launch/RPC span: sampled device
+    time, and whether a boundary built or loaded a kernel (with the
+    build's ms) — the host/device split the assemble waterfall renders.
+    No notes (the ledger off, or an unsampled launch) = no attributes, so
+    traces stay as they are with the ledger off."""
     if not notes:
         return
     dev = [n["device_us"] for n in notes if n.get("device_us") is not None]
     if dev:
         span.set_attr("device_us", round(sum(dev), 1))
+    if any(n.get("compiled") for n in notes):
+        span.set_attr("compiled", True)
+        span.set_attr(
+            "build_ms", round(sum(n.get("build_ms") or 0.0 for n in notes), 2)
+        )
 
 
 class _AssignMemo:
@@ -184,6 +195,7 @@ class ScorerServicer:
         trace_export: Optional[str] = None,
         shed_fractions=None,
         device=None,
+        devprof_sample: Optional[int] = None,
     ):
         """The reference's knobs, with the same meanings and defaults:
 
@@ -207,7 +219,11 @@ class ScorerServicer:
           ``coalesce_cap_ms`` / ``pipeline_depth``: the dispatcher
           (``coalesce.py``);
         * ``state_dir`` / ``telemetry`` / ``trace_export``: flight-recorder
-          dumps, an injected CycleTelemetry, the span export directory.
+          dumps, an injected CycleTelemetry, the span export directory;
+        * ``devprof_sample``: configure the process-global launch ledger
+          (``obs/devprof.py``) to time 1 launch in N (0 = off) into this
+          servicer's metrics, dumping under ``state_dir``; None leaves the
+          ledger as it is.
 
         ``device``: the card the resident snapshot lives on (default CUDA,
         raising when absent; ``"cpu"`` runs the plain path).  ``mesh``: the
@@ -299,6 +315,14 @@ class ScorerServicer:
         self.dispatch.launch_outcome_hook = self._launch_outcome
         self.telemetry.metrics.set_breaker_state(self.breaker.state())
         self.telemetry.metrics.set_candidate_width(self.cfg.candidate_width)
+        if devprof_sample is not None:
+            # the metrics sink is a weakref inside devprof, so this
+            # servicer's lifetime is never extended
+            devprof.configure(
+                sample=devprof_sample,
+                metrics=self.telemetry.metrics,
+                state_dir=state_dir,
+            )
 
     # -- degradation ladder seams --
     def _breaker_transition(self, to: str) -> None:

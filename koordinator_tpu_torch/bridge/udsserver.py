@@ -12,8 +12,11 @@ Frame (both directions, all integers big-endian):
 
 One connection may carry any number of sequential request/reply pairs.
 Admin-plane methods (the reference's 4 = Promote and 5 = Profile) are
-registered through ``RawUdsServer(admin_handlers=...)``; the port
-registers none yet (ROADMAP Queue A items 15 and 12).
+registered through ``RawUdsServer(admin_handlers=...)``: Profile's handler
+is ``obs/devprof.py capture_profile`` (the payload an ASCII window in ms,
+the reply the capture directory); Promote waits for replication (ROADMAP
+Queue A item 15).  ``bridge/client.py ScorerClient("raw:///path")`` is the
+Python client of this framing.
 """
 
 from __future__ import annotations

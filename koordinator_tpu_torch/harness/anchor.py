@@ -57,3 +57,16 @@ def topk_digest(top_scores, top_idx) -> str:
     h.update(np.ascontiguousarray(np.asarray(top_scores), dtype="<i8").tobytes())
     h.update(np.ascontiguousarray(np.asarray(top_idx), dtype="<i4").tobytes())
     return h.hexdigest()
+
+
+# The trace replay's configurations on the card (``chip_smoke.py``'s
+# ``trace`` line): the reference's accelerator trace and the trace at the
+# headline cluster size.  Each digest is the reference
+# ``harness/trace.py generate_trace(TraceConfig(**cfg)).digest()``;
+# ``tests/test_torch_trace.py`` recomputes both from the JAX package.
+TRACE_ANCHOR_CFG = {"seed": 0, "nodes": 512, "pod_slots": 2048, "tenants": 8,
+                    "gangs": 12, "gang_min_member": 4, "events": 96}
+TRACE_ANCHOR_SHA256 = "11d3a8e604bbece324610eb02184907f9f4d545ede6eae9a0c34b6ce2ee3ff5a"
+TRACE_HEADLINE_CFG = {"seed": 0, "nodes": 2000, "pod_slots": 10000, "tenants": 8,
+                      "gangs": 12, "gang_min_member": 4, "events": 24}
+TRACE_HEADLINE_SHA256 = "6e0d1ff7915984935e02b76caff37cb8a04e7f8b070b65d11dd0876bd2584864"

@@ -11,6 +11,31 @@ from __future__ import annotations
 import torch
 
 from koordinator_tpu_torch.model.snapshot import PERCENTILES
+from koordinator_tpu_torch.ops.scoring import (
+    least_requested_score,
+    weighted_resource_score,
+)
+
+
+def loadaware_scores(
+    pod_estimated: torch.Tensor,  # i64[P, R] estimator output per pod
+    node_usage: torch.Tensor,  # i64[N, R] measured usage (NodeMetric)
+    node_estimated: torch.Tensor,  # i64[N, R] assign-cache estimated usage
+    node_allocatable: torch.Tensor,  # i64[N, R]
+    weights: torch.Tensor,  # i64[R]
+    metric_fresh: torch.Tensor,  # bool[N]
+) -> torch.Tensor:
+    """LoadAware Score for all (pod, node) pairs -> i64[P, N] (reference
+    Score :269-335): the weighted leastRequestedScore of measured usage +
+    assign-cache estimate + the pod's estimate; 0 on a node without a fresh
+    metric."""
+    estimated_used = (
+        node_usage[None, :, :] + node_estimated[None, :, :]
+        + pod_estimated[:, None, :]
+    )
+    scores = least_requested_score(estimated_used, node_allocatable[None, :, :])
+    score = weighted_resource_score(scores, weights)
+    return torch.where(metric_fresh[None, :], score, torch.zeros_like(score))
 
 
 def usage_percent(used: torch.Tensor, total: torch.Tensor) -> torch.Tensor:

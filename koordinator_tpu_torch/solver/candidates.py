@@ -35,6 +35,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.solver.greedy import feasibility_mask, score_all
 from koordinator_tpu_torch.solver.incremental import (
     _pad_rows,
@@ -110,6 +111,7 @@ def _block_columns(snapshot, cfg, block: int, b: int) -> torch.Tensor:
     return torch.where(feas, gidx.int()[None, :], torch.full_like(feas, n, dtype=torch.int32))
 
 
+@devprof.boundary("solver.candidates._build")
 def _build(snapshot, cfg):
     """Serial blocked sweep over the node axis -> (cand i32[P, C] ascending
     with the sentinel N, count i64[P] exact)."""
@@ -128,6 +130,7 @@ def _build(snapshot, cfg):
     return cand, count
 
 
+@devprof.boundary("solver.candidates._count_blocks")
 def _count_blocks(snapshot, cfg) -> torch.Tensor:
     """Exact feasible counts of every (block, pod): i64[NB, P], no merges."""
     n = snapshot.nodes.allocatable.shape[0]
@@ -219,6 +222,7 @@ def build_candidates(snapshot, cfg, mesh=None, node_mesh=None):
     return _build(snapshot, cfg)
 
 
+@devprof.boundary("solver.candidates._refresh")
 def _refresh(snapshot, cand, count, node_idx, n_nodes, pod_idx, n_pods, cfg):
     """One exact merge-refresh:
 
@@ -271,6 +275,7 @@ def refresh_candidates(snapshot, cand, count, node_rows, pod_rows, cfg, mesh=Non
     return _refresh(snapshot, cand, count, node_idx, n_nodes, pod_idx, n_pods, cfg)
 
 
+@devprof.boundary("solver.candidates.score_candidates")
 def score_candidates(snapshot, cand, cfg, mesh=None):
     """(scores i64[P, C], feasible bool[P, C]) of the gathered cells, the
     sparse engine's whole scoring cost, O(P x C): the cellwise

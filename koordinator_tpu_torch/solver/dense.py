@@ -32,6 +32,7 @@ from koordinator_tpu_torch.config import (
 )
 from koordinator_tpu_torch.model import resources as res
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.ops.fit import nonzero_requests
 from koordinator_tpu_torch.ops.scoring import (
     least_requested_score,
@@ -308,6 +309,7 @@ def phase_cycles():
     return _build.read_counters(KERNEL_SOURCE, "koord_cycle_phase_cycles", 4)
 
 
+@devprof.boundary("solver.dense.cycle_dense_cuda")
 def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     """Launch the CUDA cycle kernel on the current stream; same outputs as
     ``cycle_dense_reference``.  Raises on a bad input or a refused launch.

@@ -36,6 +36,7 @@ from koordinator_tpu_torch.config import (
 )
 from koordinator_tpu_torch.constraints.gang import gang_satisfaction
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.ops.fit import fit_mask, nonzero_requests
 from koordinator_tpu_torch.ops.loadaware import (
     loadaware_node_masks,
@@ -390,6 +391,7 @@ def score_all(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG
     return by_pod_rows(_score_block, snapshot, cfg)
 
 
+@devprof.boundary("solver.greedy.score_cycle")
 def score_cycle(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG):
     """The Score RPC's full rescore: ``score_all`` over the whole
     snapshot.  Returns (scores i64[P, N], feasible bool[P, N])."""

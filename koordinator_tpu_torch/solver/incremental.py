@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.model.snapshot import pad_bucket
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.solver.greedy import score_all
 
 
@@ -112,6 +113,7 @@ def _rescore_body(snapshot, scores, feasible, node_idx, n_nodes, pod_idx, n_pods
     return scores, feasible
 
 
+@devprof.boundary("solver.incremental.rescore_dirty")
 def rescore_dirty(snapshot, scores, feasible, node_rows, pod_rows, cfg, mesh=None):
     """Recompute the dirty columns and rows of the resident score tensors.
 

@@ -23,8 +23,10 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.model.snapshot import pad_bucket
+from koordinator_tpu_torch.obs import devprof
 
 
+@devprof.boundary("solver.resident.apply_flat_delta")
 def apply_flat_delta(arr: torch.Tensor, idx, val, mesh=None) -> torch.Tensor:
     """``arr.flat[idx] = val`` in place (values cast to ``arr``'s dtype),
     dropping indices outside the tensor; returns ``arr``.

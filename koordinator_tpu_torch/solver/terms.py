@@ -29,6 +29,7 @@ from typing import Callable, Tuple
 import torch
 
 from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.ops.scoring import (
     most_requested_score,
     weighted_resource_score,
@@ -215,6 +216,7 @@ def _term_block(snapshot, cfg):
     return apply_terms(snapshot, cfg, scores, feasible)
 
 
+@devprof.boundary("solver.terms.term_extras")
 def term_extras(snapshot, cfg):
     """(extra_scores i64[P, N], extra_mask bool[P, N]) of the enabled terms,
     on the snapshot's device, for the Assign engines' extras seam.

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.solver.greedy import INT64_MIN
 
 # the reference's fast path ranks in float32, exact below 2^24; the port
@@ -46,6 +47,7 @@ def score_upper_bound(cfg) -> int:
     return hi + terms_upper_bound(cfg)
 
 
+@devprof.boundary("solver.topk.masked_top_k")
 def masked_top_k(scores, feasible, *, k, hi):
     """(top_scores i64[..., k], top_idx i32[..., k]) of the masked score
     tensor, equal to ``lax.top_k(where(feasible, scores, i64.min), k)``

@@ -45,6 +45,7 @@ import torch
 from koordinator_tpu_torch import _build
 from koordinator_tpu_torch.config import DEFAULT_CYCLE_CONFIG, MOST_ALLOCATED, CycleConfig
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.solver import dense
 from koordinator_tpu_torch.solver.dense import FLAG_FRESH, FLAG_OK, FLAG_PROD_OK, CycleInputs
 from koordinator_tpu_torch.solver.greedy import (
@@ -372,6 +373,7 @@ def wide_plan(inp: CycleInputs) -> dict:
         return dense.read_plan(fn, N, R, inp.qrt.shape[0], dense.uprod_shared(inp))
 
 
+@devprof.boundary("solver.wide.cycle_wide_cuda")
 def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     """Launch the per-pod wide kernel on the current stream; same outputs
     as ``cycle_wide_reference``.  Raises on a bad input or a refused launch.
@@ -411,6 +413,7 @@ def wave_plan(inp: CycleInputs, wave: int, top_m: int) -> dict:
         return dense.read_plan(fn, N, R, inp.qrt.shape[0], W, M, dense.uprod_shared(inp))
 
 
+@devprof.boundary("solver.wide.wave_cycle_cuda")
 def wave_cycle_cuda(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: int, defines=()):
     """Launch the wave cycle kernel on the current stream; same outputs as
     ``wave_cycle_reference``.  Raises on a bad input or a refused launch.

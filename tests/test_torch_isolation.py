@@ -1,7 +1,9 @@
 """The PyTorch port runs where JAX is absent: it imports neither ``jax`` nor
 the JAX package nor the protobuf runtime, imports ``grpc`` only inside the
-function that builds the gRPC transport, and ``chip_smoke.py`` refuses to
-run without a CUDA card or without the port beside it."""
+two functions that build gRPC transports (the server's and the client's),
+serves and replays a trace over the raw framing with all three blocked, and
+``chip_smoke.py`` refuses to run without a CUDA card or without the port
+beside it."""
 
 import ast
 import json
@@ -66,9 +68,13 @@ def test_grpc_is_imported_only_by_the_grpc_transport():
     sites = {str(p.relative_to(REPO)): _grpc_import_sites(p)
              for p in sorted(PORT.rglob("*.py"))}
     sites = {p: s for p, s in sites.items() if s}
-    assert list(sites) == ["koordinator_tpu_torch/bridge/server.py"]
+    # the two builders of gRPC transports: the server's and the client's
+    assert list(sites) == ["koordinator_tpu_torch/bridge/client.py",
+                           "koordinator_tpu_torch/bridge/server.py"]
     assert [func for func, _ in sites["koordinator_tpu_torch/bridge/server.py"]] == [
         "make_server"]
+    assert [func for func, _ in sites["koordinator_tpu_torch/bridge/client.py"]] == [
+        "_grpc_channel"]
     # chip_smoke.py reports whether grpc imports and, where it does, holds
     # the gRPC transport against the fixtures: inside functions only
     assert all(func is not None for func, _ in _grpc_import_sites(REPO / "chip_smoke.py"))
@@ -133,6 +139,31 @@ def test_seam_serves_over_uds_with_jax_grpc_and_protobuf_blocked():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"pods": 24, "groups": 24, "assigned": 24, "path": "scan",
                    "loaded": []}
+
+
+_REPLAY = r"""
+import json, sys
+for blocked in ("jax", "jaxlib", "grpc", "google.protobuf"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+from koordinator_tpu_torch.harness.trace import TraceConfig, TraceReplay, generate_trace
+trace = generate_trace(TraceConfig(seed=7, nodes=8, pod_slots=48, tenants=2, gangs=4,
+                                   gang_min_member=4, events=14))
+report = TraceReplay(trace, device="cpu", transport="raw").run()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "grpc", "koordinator_tpu") or m.startswith("google.protobuf")))
+print(json.dumps({"events": report.events_replayed, "parity": report.parity_checks,
+                  "retraces": report.retraces, "builds": report.builds, "loaded": loaded}))
+"""
+
+
+def test_trace_replay_runs_over_raw_with_jax_grpc_and_protobuf_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _REPLAY], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"events": 14, "parity": 15, "retraces": 0, "builds": 0, "loaded": []}
 
 
 _ISOLATED = r"""
