@@ -105,7 +105,27 @@ Phases (any failure raises and exits non-zero, printing no result):
     cluster size (2,000 nodes x 10,000 pod slots, 24 events, 25 parity
     checks, three K2 launches held against the plain version).  Every
     pass checks the engine's Syncs by kind.  The ``kernels`` line carries each kernel's launches on the
-    trace path (``trace_launches``).
+    trace path (``trace_launches``);
+13. (run before phase 10's lines) ``extras``: the extended-plugin Assign
+    cycle (the reference's ``bench.py --config extras``): at the anchor
+    recipe the composed mask and scores and the cycle on K2 and on K1 equal
+    the JAX-derived digests; at 10,000 pods x 2,000 nodes the NUMA,
+    Reservation and DeviceShare plugins composed by the FrameworkExtender
+    (timed, with its peak device memory), their mask and scores equal to
+    the CPU path on 1,024 pod rows spread across the pods,
+    ``FrameworkExtender.run_cycle`` launching K2 once and, with
+    ``i32_ok=False``, K1 once, both exact against one plain run (each
+    cycle timed), then the Reserve and PreBind hooks (cpusets on every
+    node's topology, LSR on every 16th pod from the third; device minors; reservation
+    annotations) equal to the CPU path's, timed, with the CUDA launches a
+    ``torch.profiler`` window counts during them; the ``kernels`` line
+    carries the launches (``extras_launches``);
+14. (run before phase 10's lines) ``rebalance``: the LowNodeLoad leg (the
+    reference's ``bench.py --config rebalance``): at the anchor recipe the
+    dry-run plan of ``balance`` on the card's placements equals the
+    JAX-derived digest; at the headline ``run_cycle(snap)`` (K2 once,
+    exact) places the pods and ``balance`` plans evictions, timed
+    (``rebalance_launches`` on the ``kernels`` line).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -1658,6 +1678,272 @@ def trace_phase(card, dev):
     return line, launches["cycle_wide"]
 
 
+# The hooks pass of the ``extras`` line: QoS LSR on every LSR_EVERY-th pod
+# from the third (the headline's pods are LS or BE, which bind no cpuset;
+# pods 0, 8, 16, ... carry the scenario's GPU requests and affinity), so
+# NUMA Reserve runs the cpuset accumulator on real placements.
+LSR_EVERY = 16
+# Pod rows of the full-size composition held against the CPU path.
+EXTRAS_CPU_ROWS = 1024
+
+
+def node_topologies(nodes):
+    """{node index: CPUTopology}, 2 sockets x 1 NUMA node, sized by the
+    node's CPU; nodes of one size share one topology."""
+    from koordinator_tpu_torch.model import resources as res
+    from koordinator_tpu_torch.model.topology import CPUTopology
+
+    built, out = {}, {}
+    for i, nd in enumerate(nodes):
+        cores = res.parse_quantity(nd["allocatable"]["cpu"], res.CPU) // 1000
+        if cores not in built:
+            built[cores] = CPUTopology.build(2, 1, max(cores // 4, 1), 2)
+        out[i] = built[cores]
+    return out
+
+
+def with_lsr(snap):
+    """``snap`` with QoS LSR on every ``LSR_EVERY``-th pod from the third."""
+    from koordinator_tpu_torch.model.snapshot import QoSClass
+
+    qos = snap.pods.qos.clone()
+    qos[3::LSR_EVERY] = int(QoSClass.LSR)
+    return dataclasses.replace(snap, pods=dataclasses.replace(snap.pods, qos=qos))
+
+
+def run_hooks(snap, tables, topologies, result, window=None):
+    """The Reserve and PreBind hooks of the three plugins for ``result``'s
+    placements, on a fresh context of ``tables`` (the Reservation plugin's
+    nomination computed first, outside the hooks), inside ``window`` (a
+    context manager) when given.  Returns the context, the patches, the
+    pods whose Reserve failed, and the hooks' host wall ms."""
+    import contextlib
+
+    import torch
+
+    from koordinator_tpu_torch.harness.extras_scenario import (
+        extended_plugins, extras_context,
+    )
+    from koordinator_tpu_torch.scheduler.framework import FrameworkExtender
+
+    fx = FrameworkExtender(extended_plugins())
+    failures = []
+    fx.register_error_handler(lambda ctx, p, exc: failures.append(p) or True)
+    ctx = extras_context(snap, *tables, cpu_topologies=topologies)
+    next(pl for pl in fx.plugins if pl.name == "Reservation").score(ctx)
+    on_card = snap.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    with window or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        fx.run_reserve(ctx, result)
+        patches = fx.pre_bind_patches(ctx, result)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return ctx, patches, failures, ms
+
+
+def hooks_view(ctx, patches, failures):
+    """What the hooks produced, as host objects to compare."""
+    return {"cpusets": ctx.state.get("cpuset_allocations", {}),
+            "devices": ctx.state.get("device_allocations", {}),
+            "minors": ctx.extras.get("device_minors", {}), "patches": patches,
+            "failures": failures}
+
+
+def launch_counts(prof):
+    """(CUDA kernel launch calls, device ops: kernels and copies) that a
+    finished ``torch.profiler`` window recorded."""
+    from torch.autograd import DeviceType
+
+    launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+    device_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return launches, device_ops
+
+
+def extras_phase(card, dev, counted, only):
+    """The ``extras`` line (phase 13) and the kernels' launches on it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from koordinator_tpu_torch.harness.anchor import (
+        ANCHOR_RECIPE, EXTRAS_ANCHOR_SHA256, EXTRAS_TENSORS_SHA256, cycle_digest,
+        extras_digest,
+    )
+    from koordinator_tpu_torch.harness.extras_scenario import (
+        extended_plugins, extras_context, extras_snapshot, plugin_extra_tensors,
+    )
+    from koordinator_tpu_torch.scheduler.framework import FrameworkExtender
+    from koordinator_tpu_torch.solver import greedy, greedy_assign, run_cycle
+
+    def framework():
+        fx = FrameworkExtender(extended_plugins())
+        fx.register_error_handler(lambda ctx, p, exc: True)
+        return fx
+
+    # the anchor recipe: tensors and both cycles against the JAX digests
+    snap_a, *tables_a, _, _ = extras_snapshot(**ANCHOR_RECIPE, device=dev)
+    m_a, s_a = plugin_extra_tensors(snap_a, *tables_a)
+    if extras_digest(m_a.cpu(), s_a.cpu()) != EXTRAS_TENSORS_SHA256:
+        raise AssertionError("extras anchor: the composed tensors' digest differs")
+    for name, kw in (("K2", {}), ("K1", {"i32_ok": False})):
+        res_a = framework().run_cycle(extras_context(snap_a, *tables_a), **kw)
+        digest = cycle_digest(res_a.assignment.cpu(), res_a.status.cpu())
+        if res_a.path != "cuda" or digest != EXTRAS_ANCHOR_SHA256:
+            raise AssertionError(f"extras anchor on {name}: digest {digest}")
+
+    # full size
+    t0 = time.perf_counter()
+    snap, zones, policy, devices, rsv, nodes, pods = extras_snapshot(device=dev)
+    tables = (zones, policy, devices, rsv)
+    encode_s = time.perf_counter() - t0
+    P, N = snap.pods.capacity, snap.nodes.capacity
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mask, scores = plugin_extra_tensors(snap, *tables)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    comp_ev, comp_wall = cuda_time(lambda: plugin_extra_tensors(snap, *tables))
+    # the bound: the outputs written once and the tables read once
+    out_bytes = tensor_bytes(mask, scores)
+    in_bytes = tensor_bytes(
+        snap.pods.requests, snap.nodes.valid, zones.allocatable, zones.requested,
+        zones.valid, devices.total, devices.free, devices.dev_type, devices.valid,
+        rsv.node_index, rsv.allocatable, rsv.allocated, rsv.declared, rsv.allocate_policy,
+        rsv.order, rsv.unschedulable, rsv.valid, rsv.matched, rsv.affinity_required,
+    ) + policy.nbytes
+    comp_bound, comp_bound_by = _bound(out_bytes + in_bytes, 0)
+
+    # the composition against the CPU path on pod rows spread across [0, P)
+    rows = torch.linspace(0, P - 1, EXTRAS_CPU_ROWS).round().long()
+    if len(set(rows.tolist())) != EXTRAS_CPU_ROWS:
+        raise AssertionError("extras: sampled pod rows repeat")
+    snap_cpu = map_snapshot(snap, lambda t: t.cpu())
+    rsv_cpu = rsv.to("cpu")
+    sub = greedy._pod_rows(snap_cpu, rows)
+    sub_rsv = dataclasses.replace(rsv_cpu, matched=rsv_cpu.matched[rows],
+                                  affinity_required=rsv_cpu.affinity_required[rows])
+    t0 = time.perf_counter()
+    m_cpu, s_cpu = plugin_extra_tensors(sub, zones.to("cpu"), policy, devices.to("cpu"),
+                                        sub_rsv)
+    cpu_rows_s = time.perf_counter() - t0
+    if not (torch.equal(m_cpu, mask[rows].cpu()) and torch.equal(s_cpu, scores[rows].cpu())):
+        raise AssertionError("extras: the card's mask or scores differ from the CPU path")
+
+    # the cycle through the FrameworkExtender, on K2 and on K1, each against
+    # one plain run; the hooks' Reserve failures are claimed by a handler
+    oracle = greedy_assign(snap, extra_mask=mask, extra_scores=scores)
+    torch.cuda.synchronize()
+    launches = {}
+    results = {}
+    for name, kernel, kw in (("K2", "cycle_wide", {}),
+                             ("K1", "cycle_dense", {"i32_ok": False})):
+        fx = framework()
+        result, counts = counted(f"extras {name}", oracle, lambda: fx.run_cycle(
+            extras_context(snap, *tables), **kw))
+        launches[name] = only(f"the extras cycle on {name}", counts, kernel)
+        results[name] = result
+    k2_ev, k2_wall = cuda_time(lambda: run_cycle(snap, extra_mask=mask, extra_scores=scores))
+    k1_ev, k1_wall = cuda_time(lambda: run_cycle(snap, extra_mask=mask, extra_scores=scores,
+                                                 i32_ok=False))
+    result = results["K2"]
+
+    # the hooks on the card against the CPU path, on the same placements
+    topo = node_topologies(nodes)
+    snap_h = with_lsr(snap)
+    hooks_ms = []
+    for _ in range(TIMED_RUNS):
+        ctx, patches, failures, ms = run_hooks(snap_h, tables, topo, result)
+        hooks_ms.append(ms)
+    card_view = hooks_view(ctx, patches, failures)
+    result_cpu = dataclasses.replace(result, assignment=result.assignment.cpu(),
+                                     status=result.status.cpu())
+    tables_cpu = (zones.to("cpu"), policy, devices.to("cpu"), rsv_cpu)
+    ctx_c, patches_c, failures_c, cpu_hooks_ms = run_hooks(
+        with_lsr(snap_cpu), tables_cpu, topo, result_cpu)
+    if hooks_view(ctx_c, patches_c, failures_c) != card_view:
+        raise AssertionError("extras: the card's Reserve/PreBind results differ from the CPU path")
+    with_profile = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run_hooks(snap_h, tables, topo, result, window=with_profile)
+    hook_launches, hook_device_ops = launch_counts(with_profile)
+    placed = int((result.assignment >= 0).sum())
+    if hook_launches >= 100:
+        raise AssertionError(f"extras hooks: {hook_launches} kernel launches for {placed} pods")
+
+    kinds = {}
+    for patch in patches.values():
+        for k in patch["annotations"]:
+            kinds[k] = kinds.get(k, 0) + 1
+    line = {
+        "path": "FrameworkExtender([NodeNUMAResource, Reservation, DeviceShare]).run_cycle",
+        "snapshot": f"quota_colocation {P} pods x {N} nodes, seed 0, extras_scenario seed 0",
+        "anchor": f"{ANCHOR_RECIPE}: tensors, K2 and K1 digests match the reference",
+        "encode_s": encode_s, "pods": P, "nodes": N,
+        "masked_cells": int((~mask).sum()), "scored_cells": int((scores > 0).sum()),
+        "composition_ms_cuda_events": comp_ev, "composition_ms_host_wall": comp_wall,
+        "composition_bound_ms": comp_bound, "composition_bound_by": comp_bound_by,
+        "composition_out_bytes": out_bytes, "composition_in_bytes": in_bytes,
+        "composition_peak_bytes": peak,
+        "composition_peak_over_resident_bytes": peak - before,
+        "cpu_rows_checked": EXTRAS_CPU_ROWS, "cpu_rows_s": cpu_rows_s,
+        "assigned": placed, "launches": launches,
+        "cycle_k2_ms_cuda_events": k2_ev, "cycle_k2_ms_host_wall": k2_wall,
+        "cycle_k1_ms_cuda_events": k1_ev, "cycle_k1_ms_host_wall": k1_wall,
+        "hooks_ms_host_wall": statistics.median(hooks_ms), "hooks_cpu_path_ms": cpu_hooks_ms,
+        "hooks_kernel_launches": hook_launches, "hooks_device_ops": hook_device_ops,
+        "cpusets": len(card_view["cpusets"]), "device_allocations": len(card_view["devices"]),
+        "reserve_failures": len(failures), "patches": len(patches), "annotations": kinds,
+        "parity": "tensors exact vs the CPU path; K2 and K1 exact vs one greedy_assign; "
+                  "hooks equal to the CPU path",
+        "timed_runs": TIMED_RUNS, "card": card,
+    }
+    return line, launches
+
+
+def rebalance_phase(card, dev, counted, only, snap, lists, oracle):
+    """The ``rebalance`` line (phase 14) and K2's launches on it."""
+    import torch
+
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.harness.anchor import (
+        ANCHOR_RECIPE, REBALANCE_ANCHOR_SHA256, plan_digest,
+    )
+    from koordinator_tpu_torch.harness.rebalance import placed_node_dicts, plan_rebalance
+    from koordinator_tpu_torch.solver import run_cycle
+
+    anchor, a_nodes, a_pods, *_ = g.quota_colocation_snapshot(**ANCHOR_RECIPE, device=dev)
+    a_res = run_cycle(anchor)
+    a_plan = plan_rebalance(placed_node_dicts(a_nodes, a_pods, a_res.assignment.tolist()))
+    if a_res.path != "cuda" or plan_digest(a_plan) != REBALANCE_ANCHOR_SHA256:
+        raise AssertionError("rebalance anchor: the plan's digest differs from the reference's")
+
+    nodes, pods = lists[0], lists[1]
+    result, counts = counted("rebalance cycle", oracle, lambda: run_cycle(snap))
+    k2 = only("the rebalance cycle", counts, "cycle_wide")
+    t0 = time.perf_counter()
+    node_dicts = placed_node_dicts(nodes, pods, result.assignment.tolist())
+    dicts_ms = (time.perf_counter() - t0) * 1e3
+    times, plan = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        plan = plan_rebalance(node_dicts)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {
+        "path": "run_cycle(snap) -> placed_node_dicts -> balance(dry_run, pool low 20/20, "
+                "high 50/50)",
+        "anchor": f"{ANCHOR_RECIPE}: {len(a_plan)} planned evictions, digest matches",
+        "assigned": int((result.assignment >= 0).sum()), "launches": {"K2": k2},
+        "node_dicts_ms_host_wall": dicts_ms,
+        "balance_ms_host_wall": statistics.median(times),
+        "planned_evictions": len(plan),
+        "source_nodes": len({p["node"] for p in plan}),
+        "timed_runs": TIMED_RUNS, "card": card,
+    }, k2
+
+
 def main() -> int:
     import torch
 
@@ -1789,20 +2075,23 @@ def main() -> int:
     torch.cuda.synchronize()
     snapshot_desc = "quota_colocation 10000 pods x 2000 nodes, 16 tenants, seed 0"
 
-    def drive(name, want, *args, **kw):
-        """``run_cycle(*args, **kw)`` with every launch count set to 0 just
-        before it; exact against ``want``, no demotion.  Returns (result,
+    def counted(name, want, call):
+        """``call()`` with every launch count set to 0 just before it;
+        exact against ``want``, no demotion.  Returns (result,
         {kernel: launches})."""
         torch.cuda.synchronize()
         dense.reset_launches()
         wide.reset_launches()
-        out = run_cycle(*args, **kw)
+        out = call()
         torch.cuda.synchronize()
         counts = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
         if out.path != "cuda" or kernel_demotions():
             raise AssertionError(f"{name}: path {out.path}, demotions {kernel_demotions()}")
         assert_same(name, out, want)
         return out, counts
+
+    def drive(name, want, *args, **kw):
+        return counted(name, want, lambda: run_cycle(*args, **kw))
 
     def only(name, counts, kernel):
         if counts[kernel] < 1 or sum(counts.values()) != counts[kernel]:
@@ -1986,27 +2275,40 @@ def main() -> int:
     print(json.dumps({"trace": trace_line}))
     phase_done("12_trace")
 
+    # phase 13: the extended-plugin cycle
+    extras_line, extras_launches = extras_phase(card, dev, counted, only)
+    print(json.dumps({"extras": extras_line}))
+    phase_done("13_extras")
+
+    # phase 14: the rebalance leg
+    rebalance_line, k2_rebalance = rebalance_phase(card, dev, counted, only, snap,
+                                                   cluster_lists, oracle)
+    print(json.dumps({"rebalance": rebalance_line}))
+    phase_done("14_rebalance")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
-         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, 0, k1_err, k1_ms,
-         k1_plain_ms, k1_bound, k1_bound_by),
+         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, 0,
+         extras_launches["K1"], 0, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_trace_launches,
-         k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
+         extras_launches["K2"], k2_rebalance, k2_err, k2_ms, k2_plain_ms, k2_bound,
+         k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, k3_err, k3_ms,
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, 0, 0, k3_err, k3_ms,
          k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "trace_launches": trace_launches, "max_abs_err": err,
+        "launches": launches, "trace_launches": trace_launches,
+        "extras_launches": extras_n, "rebalance_launches": rebalance_n, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         # no PyTorch call computes a sequential greedy assignment
         "library_ms": None, "parity": "exact",
-    } for name, source, replaces, launches, trace_launches, err, ms, plain_ms, bound_ms,
-        bound_by in entries]}))
+    } for name, source, replaces, launches, trace_launches, extras_n, rebalance_n, err, ms,
+        plain_ms, bound_ms, bound_by in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

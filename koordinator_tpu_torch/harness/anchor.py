@@ -26,6 +26,7 @@ under the term config.  ``tests/test_torch_score.py`` and
 from __future__ import annotations
 
 import hashlib
+import json
 
 import numpy as np
 
@@ -70,3 +71,33 @@ TRACE_ANCHOR_SHA256 = "11d3a8e604bbece324610eb02184907f9f4d545ede6eae9a0c34b6ce2
 TRACE_HEADLINE_CFG = {"seed": 0, "nodes": 2000, "pod_slots": 10000, "tenants": 8,
                       "gangs": 12, "gang_min_member": 4, "events": 24}
 TRACE_HEADLINE_SHA256 = "6e0d1ff7915984935e02b76caff37cb8a04e7f8b070b65d11dd0876bd2584864"
+
+
+# The extended-plugin cycle (``chip_smoke.py``'s ``extras`` line) at
+# ``ANCHOR_RECIPE``, the extras scenario at seed 0
+# (``extras_scenario.extras_snapshot``): ``EXTRAS_TENSORS_SHA256`` is the
+# digest of the reference's ``plugin_extra_tensors`` (mask, scores) and
+# ``EXTRAS_ANCHOR_SHA256`` the cycle digest of its ``greedy_assign`` with
+# them.  ``REBALANCE_ANCHOR_SHA256`` is the digest of the reference's
+# ``balance`` plan (``harness/rebalance.py``) on the reference's
+# placements of the anchor snapshot (``ANCHOR_SHA256``).
+# ``tests/test_torch_extras.py`` and ``tests/test_torch_descheduler.py``
+# recompute them from the JAX package.
+EXTRAS_TENSORS_SHA256 = "b3123fec556087fa1a738fc1b94091a1452f1cce361dc9611d5b26e2b4f7edc0"
+EXTRAS_ANCHOR_SHA256 = "1d5fbb3c41583acee8689263878a3558ce0452ea52d978df116ba20d66fd08b4"
+REBALANCE_ANCHOR_SHA256 = "406100f80221231a9bcc0d188c71b97021f7f06a17e77489c7270b118ceb47ed"
+
+
+def extras_digest(mask, scores) -> str:
+    """sha256 over the mask, one byte a cell, then the little-endian int64
+    scores.  Takes numpy arrays or CPU tensors."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(np.asarray(mask), dtype=np.uint8).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(scores), dtype="<i8").tobytes())
+    return h.hexdigest()
+
+
+def plan_digest(planned) -> str:
+    """sha256 of a Balance plan (a list of dicts) as canonical JSON."""
+    text = json.dumps(list(planned), sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(text.encode()).hexdigest()

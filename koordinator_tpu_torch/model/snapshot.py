@@ -116,6 +116,17 @@ def translate_resource_index(priority_class: PriorityClass, idx: int) -> int:
     return _RESOURCE_TRANSLATION.get(priority_class, {}).get(idx, idx)
 
 
+def tensors_to(table, device):
+    """``table`` (a frozen dataclass) with every tensor field moved to
+    ``device``; other fields are kept."""
+    dev = torch.device(device)
+    return dataclasses.replace(table, **{
+        f.name: getattr(table, f.name).to(dev)
+        for f in dataclasses.fields(table)
+        if isinstance(getattr(table, f.name), torch.Tensor)
+    })
+
+
 def pad_bucket(n: int, minimum: int = 8) -> int:
     """Smallest power-of-two bucket >= n (>= minimum)."""
     b = minimum

@@ -290,6 +290,32 @@ def _pod_rows(snapshot: ClusterSnapshot, rows: slice) -> ClusterSnapshot:
     return dataclasses.replace(snapshot, pods=cut(snapshot.pods), nodes=nodes)
 
 
+def by_rows(fn, rows: int, row_bytes: int):
+    """``fn(slice)`` (a tensor or a tuple of tensors of ``rows`` rows)
+    computed over chunks of rows whose largest temporary, ``row_bytes`` a
+    row, stays within ``CHUNK_BYTES``.  The caller's ``fn`` must compute
+    each output row from its own input rows only; then the chunked result
+    equals the unchunked one bit for bit."""
+    step = max(1, CHUNK_BYTES // max(int(row_bytes), 1))
+    if rows <= step:
+        return fn(slice(0, rows))
+    out = None
+    for start in range(0, rows, step):
+        sl = slice(start, min(rows, start + step))
+        parts = fn(sl)
+        single = isinstance(parts, torch.Tensor)
+        if single:
+            parts = (parts,)
+        if out is None:
+            out = tuple(
+                torch.empty((rows,) + p.shape[1:], dtype=p.dtype, device=p.device)
+                for p in parts
+            )
+        for o, p in zip(out, parts):
+            o[sl] = p
+    return out[0] if single else out
+
+
 def by_pod_rows(fn, snapshot: ClusterSnapshot, cfg: CycleConfig):
     """``fn(snapshot, cfg)`` (a tuple of [P, ...] tensors) computed over
     chunks of pod rows whose [rows, cells, R] int64 temporaries stay within
@@ -297,21 +323,7 @@ def by_pod_rows(fn, snapshot: ClusterSnapshot, cfg: CycleConfig):
     result equals the unchunked one bit for bit."""
     P, R = snapshot.pods.requests.shape
     cells = max(int(snapshot.nodes.valid.shape[-1]), 1)
-    step = max(1, CHUNK_BYTES // (cells * R * 8))
-    if P <= step:
-        return fn(snapshot, cfg)
-    out = None
-    for start in range(0, P, step):
-        rows = slice(start, min(P, start + step))
-        parts = fn(_pod_rows(snapshot, rows), cfg)
-        if out is None:
-            out = tuple(
-                torch.empty((P,) + p.shape[1:], dtype=p.dtype, device=p.device)
-                for p in parts
-            )
-        for o, p in zip(out, parts):
-            o[rows] = p
-    return out
+    return by_rows(lambda rows: fn(_pod_rows(snapshot, rows), cfg), P, cells * R * 8)
 
 
 def _fit_score_requests(requests: torch.Tensor) -> torch.Tensor:
