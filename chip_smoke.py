@@ -125,7 +125,27 @@ Phases (any failure raises and exits non-zero, printing no result):
     dry-run plan of ``balance`` on the card's placements equals the
     JAX-derived digest; at the headline ``run_cycle(snap)`` (K2 once,
     exact) places the pods and ``balance`` plans evictions, timed
-    (``rebalance_launches`` on the ``kernels`` line).
+    (``rebalance_launches`` on the ``kernels`` line);
+15. (run before phase 10's lines) ``daemon``: the koord-scheduler daemon
+    and its read follower (``scheduler/server.py SchedulerServer``, one
+    process, each under its own temporary state dir; the leader with the
+    journal and the prewarm, gRPC where ``grpc`` imports) driven by a
+    ``ScorerClient`` with the follower as ``followers=``: a full Sync of
+    the headline cluster, then the follower subscribes (the full frame's
+    raw and zlib bytes, its replication ms); the first Assign equal to
+    phase 4's; eight O(changed) delta Syncs (the ``incremental`` recipe,
+    seed 8), each replicated before the next (the lag); the view re-sent
+    with its names; Score (k = 32) on the follower byte for byte the
+    leader's; the follower refusing a Sync with the one-writer text; the
+    Assign (K2 only) equal to ``run_cycle`` on the same snapshot, then
+    seven measured Assigns with no build and no demotion; healthz and
+    ``/metrics`` on both; Profile (admin method 5); the leader restarted
+    on its state dir, resuming the same snapshot id from the journal and
+    the same Assign, its prewarm rebuilding every recorded variant with
+    none failed; then the leader stopped, the follower promoted (admin
+    method 4) and the client's next Sync finding it, with one full resync
+    on the new epoch, and the same Assign.  ``daemon_launches`` on the
+    ``kernels`` line counts the line's K2 launches.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -1944,6 +1964,399 @@ def rebalance_phase(card, dev, counted, only, snap, lists, oracle):
     }, k2
 
 
+def client_sync_kwargs(lists):
+    """``ScorerClient.sync`` keywords for the cluster ``lists`` (nodes, pods,
+    gangs, quotas): the tensors and columns of
+    ``harness/golden.build_sync_request``'s full Sync, decoded back."""
+    from koordinator_tpu_torch.bridge.state import tensor_to_numpy
+    from koordinator_tpu_torch.harness.golden import build_sync_request
+
+    node_list, pod_list, gangs, quotas = lists
+    P, N = len(pod_list), len(node_list)
+    req, _ = build_sync_request(node_list, pod_list, gangs, quotas,
+                                node_bucket=N, pod_bucket=P)
+
+    def arr(t):
+        return tensor_to_numpy(t, None)
+
+    return dict(
+        node_allocatable=arr(req.nodes.allocatable), node_requested=arr(req.nodes.requested),
+        node_usage=arr(req.nodes.usage), node_names=list(req.nodes.names),
+        metric_fresh=list(req.nodes.metric_fresh), pod_requests=arr(req.pods.requests),
+        pod_estimated=arr(req.pods.estimated), pod_names=list(req.pods.names),
+        priority=list(req.pods.priority), gang_id=list(req.pods.gang_id),
+        quota_id=list(req.pods.quota_id), gang_min_member=list(req.gangs.min_member),
+        quota_runtime=arr(req.quotas.runtime), quota_used=arr(req.quotas.used),
+        quota_limited=arr(req.quotas.limited), node_bucket=N, pod_bucket=P,
+    )
+
+
+def daemon_deltas(kw, count, seed):
+    """``count`` successive Sync keywords, each changing 64 node rows
+    (requested and usage of cpu and memory) and 16 pod rows (cpu request):
+    the ``incremental`` phase's recipe, its probe rows shifted by one per
+    delta.  The keywords carry the three changed tensors only, so each
+    frame is O(changed): names and columns the client sent once are not
+    sent again.  Yields (keywords, [(field, rows, cols, values)])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, p = kw["node_allocatable"].shape[0], kw["pod_requests"].shape[0]
+    probe = np.unique((np.arange(64) * max(1, n // 64)) % n)
+    alloc = kw["node_allocatable"]
+    cur = dict(kw)
+    for i in range(count):
+        rows = (probe + i) % n
+        changes = []
+        for field, frac in (("node_requested", 0.5), ("node_usage", 0.9)):
+            a = cur[field].copy()
+            for c in (0, 1):
+                a[rows, c] = (alloc[rows, c] * rng.uniform(0, frac, len(rows))).astype(np.int64)
+            changes.append((field, rows, (0, 1), a[rows][:, :2].copy()))
+            cur[field] = a
+        pod_rows = np.sort(rng.choice(p, size=16, replace=False))
+        a = cur["pod_requests"].copy()
+        a[pod_rows, 0] = rng.choice([250, 1000, 8000], len(pod_rows))
+        changes.append(("pod_requests", pod_rows, (0,), a[pod_rows][:, :1].copy()))
+        cur["pod_requests"] = a
+        yield {k: cur[k] for k in ("node_requested", "node_usage", "pod_requests")}, changes
+
+
+def raw_call(path, method, payload, timeout=300):
+    """(status, payload) of one raw-framing call on a fresh connection."""
+    import socket
+    import struct
+
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    conn.settimeout(timeout)
+    try:
+        conn.connect(path)
+        conn.sendall(struct.pack(">BI", method, len(payload)) + payload)
+        head = b""
+        while len(head) < 5:
+            chunk = conn.recv(5 - len(head))
+            if not chunk:
+                raise AssertionError(f"{path} closed the connection")
+            head += chunk
+        status, length = struct.unpack(">BI", head)
+        body = bytearray()
+        while len(body) < length:
+            chunk = conn.recv(min(length - len(body), 1 << 22))
+            if not chunk:
+                raise AssertionError(f"{path} closed the connection")
+            body.extend(chunk)
+        return status, bytes(body)
+    finally:
+        conn.close()
+
+
+def wait_for(name, predicate, timeout_s=120.0):
+    """Seconds until ``predicate()`` held; fails the run past ``timeout_s``."""
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"daemon: {name} did not happen within {timeout_s} s")
+        time.sleep(0.0005)
+    return time.perf_counter() - t0
+
+
+def daemon_phase(card, dev, lists, headline, snap):
+    """The ``daemon`` line (phase 15): the koord-scheduler daemon and its
+    follower at the headline, through the entry points a deployment uses
+    (``scheduler/server.py SchedulerServer``, ``bridge/client.py
+    ScorerClient``), each check exact.  Returns (line, K2 launches)."""
+    import json as _json
+    import os
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.analysis.retrace_guard import retrace_guard
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.bridge.client import ScorerClient, parse_snapshot_id
+    from koordinator_tpu_torch.bridge.state import ResidentState
+    from koordinator_tpu_torch.obs import prewarm
+    from koordinator_tpu_torch.bridge.udsserver import (
+        METHOD_ASSIGN, METHOD_PROFILE, METHOD_SCORE, METHOD_SYNC,
+    )
+    from koordinator_tpu_torch.replication import codec
+    from koordinator_tpu_torch.replication.follower import promote_replica
+    from koordinator_tpu_torch.scheduler.server import SchedulerServer
+    from koordinator_tpu_torch.solver import dense, kernel_demotions, run_cycle, wide
+
+    P, N = len(lists[1]), len(lists[0])
+    K = 32
+    try:
+        import grpc  # noqa: F401
+        grpc_ok = True
+    except ImportError:
+        grpc_ok = False
+    print(f"daemon: grpc importable: {grpc_ok}")
+    tmp = tempfile.mkdtemp(prefix="kd")
+    line = {"snapshot": f"quota_colocation {P} pods x {N} nodes, 16 tenants, seed 0",
+            "grpc_importable": grpc_ok, "card": card}
+    exact = {}
+    servers = []
+
+    def counts():
+        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+
+    def uncounted(fn):
+        """``fn()`` (an in-process comparison) without touching the counts."""
+        torch.cuda.synchronize()
+        saved_dense, saved_wide = dense.LAUNCHES, dict(wide.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        dense.LAUNCHES = saved_dense
+        wide.LAUNCHES.update(saved_wide)
+        return out
+
+    def start(name, **kw):
+        srv = SchedulerServer(
+            lease_path=os.path.join(tmp, f"{name}.lease"), identity=name,
+            uds_path=os.path.join(tmp, f"{name}.sock"), state_dir=os.path.join(tmp, name),
+            http_port=0, enable_grpc=grpc_ok, device=dev, **kw).start()
+        servers.append(srv)
+        return srv
+
+    def stop(srv):
+        srv.stop()
+        servers.remove(srv)
+
+    def health(srv):
+        out = {}
+        for path in ("/healthz", "/metrics"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.http_port}{path}",
+                                        timeout=60) as r:
+                if r.status != 200:
+                    raise AssertionError(f"daemon: {path} answered {r.status}")
+                out[path] = r.read()
+        doc = _json.loads(out["/healthz"])
+        missing = {"replica", "prewarm", "device"} - set(doc)
+        if missing or b"koord_scorer_" not in out["/metrics"]:
+            raise AssertionError(f"daemon: healthz lacks {missing} or /metrics is empty")
+        return doc
+
+    def score_bytes(path, sid):
+        status, body = raw_call(path, METHOD_SCORE, wire.ScoreRequest(
+            snapshot_id=sid, top_k=K, flat=True).SerializeToString())
+        if status != 0:
+            raise AssertionError(f"daemon: Score on {path}: {body.decode()}")
+        reply = wire.ScoreReply.FromString(body)
+        reply.build_ms = 0.0
+        return reply.SerializeToString()
+
+    def placements(reply):
+        return list(reply[0]), list(reply[1])
+
+    def same(name, got, want_result):
+        ok = (got[0] == want_result.assignment[:P].cpu().tolist()
+              and got[1] == want_result.status[:P].cpu().tolist())
+        exact[name] = ok
+        if not ok:
+            raise AssertionError(f"daemon: {name} differs")
+
+    kw = client_sync_kwargs(lists)
+    cur = map_snapshot(snap, lambda t: t.clone())
+    cli = None
+    try:
+        torch.cuda.synchronize()
+        dense.reset_launches()
+        wide.reset_launches()
+        leader = start("leader", journal=True, prewarm=True)
+        wait_for("the leader's election", lambda: leader.elector.is_leader)
+        cli = ScorerClient(f"raw://{leader.uds_path}.raw",
+                           followers=[f"raw://{tmp}/follower.sock.raw"])
+        # 1. the full Sync, then the follower subscribes: its stream opens
+        # with the full frame
+        t0 = time.perf_counter()
+        full_sid = cli.sync(**kw).snapshot_id
+        full_sync_ms = (time.perf_counter() - t0) * 1e3
+        epoch, gen, payload = leader.servicer.export_replication_snapshot()
+        follower = start("follower", replicate_from=leader.repl_path)
+        full_s = wait_for("the full frame", lambda: follower.servicer.snapshot_id() == full_sid)
+        line["full_frame"] = {
+            "raw_bytes": len(payload), "zlib_bytes": len(codec.compress_payload(payload)),
+            "replication_ms": full_s * 1e3,
+            "note": "follower start to its snapshot id equal to the leader's, "
+                    "the subscription included",
+            "client_full_sync_ms": full_sync_ms,
+        }
+        # the first Assign is phase 4's run_cycle on the headline snapshot
+        first = placements(cli.assign())
+        same("first_assign_vs_phase4_run_cycle", first, headline)
+        # 2. eight delta Syncs, each replicated before the next
+        lags, waits, frames = [], [], []
+        for step_kw, changes in daemon_deltas(kw, 8, seed=8):
+            journal_before = leader.journal.stats()["bytes"]
+            sid = cli.sync(**step_kw).snapshot_id
+            ack = time.perf_counter()
+            wait_for("a delta frame", lambda: follower.servicer.snapshot_id() == sid)
+            waits.append((time.perf_counter() - ack) * 1e3)
+            frames.append(leader.journal.stats()["bytes"] - journal_before)
+            lags.append(follower.applier.last_lag_ms)
+            for field, rows, cols, values in changes:
+                tensor = {"node_requested": cur.nodes.requested,
+                          "node_usage": cur.nodes.usage,
+                          "pod_requests": cur.pods.requests}[field]
+                for j, c in enumerate(cols):
+                    tensor[torch.as_tensor(rows, device=dev), c] = torch.as_tensor(
+                        values[:, j], device=dev, dtype=tensor.dtype)
+        if leader.servicer.state.last_sync_path != "warm":
+            raise AssertionError("daemon: the delta Syncs did not land warm")
+        # the same cluster with every keyword again (names and columns too,
+        # as a client that re-sends its whole view would): no tensor moves,
+        # but the frame carries the names
+        journal_before = leader.journal.stats()["bytes"]
+        sid = cli.sync(**dict(kw, **step_kw)).snapshot_id
+        ack = time.perf_counter()
+        wait_for("the re-sent view", lambda: follower.servicer.snapshot_id() == sid)
+        resent = {"journal_record_bytes": leader.journal.stats()["bytes"] - journal_before,
+                  "replication_lag_ms": follower.applier.last_lag_ms,
+                  "ack_to_follower_ms": (time.perf_counter() - ack) * 1e3}
+        line["deltas"] = {
+            "syncs": 8, "node_rows": 64, "pod_rows": 16, "seed": 8,
+            "replication_lag_ms_p50": statistics.median(lags),
+            "replication_lag_ms_max": max(lags),
+            "lag": "leader commit stamp to follower apply (ReplicaApplier.last_lag_ms)",
+            "ack_to_follower_ms_p50": statistics.median(waits),
+            "ack_to_follower_ms_max": max(waits),
+            "journal_record_bytes": frames,
+            "resent_view": resent,
+        }
+        # 3. Score k = 32 on the follower and on the leader
+        f_score = score_bytes(f"{tmp}/follower.sock.raw", sid)
+        l_score = score_bytes(f"{leader.uds_path}.raw", sid)
+        exact["follower_score_bytes_vs_leader"] = f_score == l_score
+        if f_score != l_score:
+            raise AssertionError("daemon: the follower's Score reply differs from the leader's")
+        routed = cli.score_flat(top_k=K)
+        if len(routed[0]) != P:
+            raise AssertionError(f"daemon: the routed Score covered {len(routed[0])} pods")
+        # the follower refuses a Sync with the one-writer text
+        status, body = raw_call(f"{tmp}/follower.sock.raw", METHOD_SYNC,
+                                wire.SyncRequest().SerializeToString())
+        exact["follower_refuses_sync"] = status == 1 and b"one writer" in body
+        if not exact["follower_refuses_sync"]:
+            raise AssertionError(f"daemon: the follower answered a Sync with {status} {body!r}")
+        # 4. the Assign on the leader, against run_cycle on the same snapshot
+        assign = placements(cli.assign())
+        want = uncounted(lambda: run_cycle(cur))
+        same("assign_vs_in_process_run_cycle", assign, want)
+        # the measured Assigns: a no-change Sync (a new generation) then an
+        # Assign, no kernel build and no demotion
+        def ip_cycle():
+            r = run_cycle(cur)
+            return r.assignment.cpu(), r.status.cpu()
+
+        rpc, ip = [], []
+        with retrace_guard(budget=0) as guard:
+            for _ in range(TIMED_RUNS):
+                cli.sync()
+                got, ev, wall = rpc_timed(cli.assign)
+                rpc.append((ev, wall))
+                if placements(got) != assign:
+                    raise AssertionError("daemon: a measured Assign differs")
+            for _ in range(TIMED_RUNS):
+                ip.append(uncounted(lambda: rpc_timed(ip_cycle))[1:])
+        line["assign"] = {**seam_cost(rpc, ip), "measured_builds": guard.compiles,
+                          "measured_demotions": guard.traces}
+        if guard.compiles or guard.traces:
+            raise AssertionError(f"daemon: {guard.compiles} builds, {guard.traces} "
+                                 "demotions during the measured Assigns")
+        docs = {"leader": health(leader), "follower": health(follower)}
+        line["healthz"] = {
+            "leader_role": docs["leader"]["replica"]["role"],
+            "follower_role": docs["follower"]["replica"]["role"],
+            "follower_applied_frames": docs["follower"]["replica"]["applied_frames"],
+            "device_platform": docs["leader"]["device"]["platform"],
+        }
+        if (line["healthz"]["leader_role"], line["healthz"]["follower_role"]) != (
+                "leader", "follower") or line["healthz"]["device_platform"] != "cuda":
+            raise AssertionError(f"daemon: healthz {line['healthz']}")
+        # Profile (admin method 5) on the live leader
+        status, body = raw_call(f"{leader.uds_path}.raw", METHOD_PROFILE, b"200")
+        capture = body.decode()
+        if status != 0 or not capture.startswith(leader.state_dir):
+            raise AssertionError(f"daemon: Profile answered {status} {capture!r}")
+        wait_for("the profile capture",
+                 lambda: os.path.exists(os.path.join(capture, "trace.json")), 120)
+        line["profile_capture"] = os.path.relpath(capture, tmp)
+        # warm restart on the same state dir: the journal replays
+        sid = cli.snapshot_id
+        last = assign
+        stop(leader)
+        journal_bytes = os.path.getsize(os.path.join(tmp, "leader", "journal.krj"))
+        leader = start("leader", journal=True, prewarm=True)
+        replay = leader.journal_replay
+        exact["warm_restart_same_snapshot_id"] = (
+            replay["resumed_id"] == sid == leader.servicer.snapshot_id())
+        if not exact["warm_restart_same_snapshot_id"]:
+            raise AssertionError(f"daemon: the restart resumed {replay['resumed_id']}, "
+                                 f"not {sid}")
+        wait_for("the restarted leader's election", lambda: leader.elector.is_leader)
+        status, body = raw_call(f"{leader.uds_path}.raw", METHOD_ASSIGN,
+                                wire.AssignRequest(snapshot_id=sid).SerializeToString())
+        reply = wire.AssignReply.FromString(body) if status == 0 else None
+        exact["warm_restart_same_assign"] = reply is not None and placements(
+            (reply.assignment, reply.status)) == last
+        if not exact["warm_restart_same_assign"]:
+            raise AssertionError("daemon: the restarted leader's Assign differs")
+        if not leader._prewarm_runner.wait(300):
+            raise AssertionError("daemon: the prewarm did not finish")
+        pw = leader._prewarm_runner.stats()
+        record = [r["source"] for r in prewarm.load(leader.state_dir)]
+        if (pw["failed"] or pw["compiled"] != pw["total"] or pw["total"] < 1
+                or "solver/cycle_cuda.cu" not in record):
+            raise AssertionError(f"daemon: prewarm {pw}, record {record}, "
+                                 f"failures {leader._prewarm_runner.failures}")
+        line["journal"] = {"bytes": journal_bytes,
+                           "replayed_frames": replay["replayed_frames"],
+                           "replay_ms": replay["replay_ms"]}
+        line["prewarm"] = {"variants": pw["total"], "built": pw["compiled"],
+                           "failed": pw["failed"], "build_ms": pw["compile_ms_total"],
+                           "elapsed_ms": pw["elapsed_ms"],
+                           "note": "variants this process had loaded, so each build "
+                                   "is a cache hit in the process"}
+        # failover: stop the leader, promote the follower over its admin
+        # socket, and the client's next Sync finds it
+        stop(leader)
+        t0 = time.perf_counter()
+        new_sid = promote_replica(f"{tmp}/follower.sock.raw", timeout_s=120)
+        reply = cli.sync()
+        promote_ms = (time.perf_counter() - t0) * 1e3
+        e_new, g_new = parse_snapshot_id(new_sid)
+        e_got, g_got = parse_snapshot_id(reply.snapshot_id)
+        # on the promoted epoch: the client's delta, then its one full
+        # resync on the epoch fence
+        exact["client_found_the_promoted_leader"] = e_got == e_new and g_got == g_new + 2
+        if not exact["client_found_the_promoted_leader"]:
+            raise AssertionError(f"daemon: after promotion to {new_sid} the client's Sync "
+                                 f"acked {reply.snapshot_id}")
+        after = placements(cli.assign())
+        exact["assign_after_failover"] = after == last
+        if after != last:
+            raise AssertionError("daemon: the Assign after failover differs")
+        line["failover"] = {"promote_to_first_acked_sync_ms": promote_ms,
+                            "syncs_on_new_leader": "the delta, then one full resync"}
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        if cli is not None:
+            cli.close()
+        for srv in list(servers):
+            srv.stop()
+    if launches["cycle_wide"] < 1 or launches["cycle_dense"] or launches["wave_cycle"] \
+            or kernel_demotions():
+        raise AssertionError(f"daemon: the Assigns launched {launches}, "
+                             f"demotions {kernel_demotions()}")
+    line["launches"] = launches
+    line["exact"] = exact
+    return line, launches["cycle_wide"]
+
+
 def main() -> int:
     import torch
 
@@ -2286,29 +2699,35 @@ def main() -> int:
     print(json.dumps({"rebalance": rebalance_line}))
     phase_done("14_rebalance")
 
+    # phase 15: the daemon and its follower
+    daemon_line, k2_daemon = daemon_phase(card, dev, cluster_lists, result, snap)
+    print(json.dumps({"daemon": daemon_line}))
+    phase_done("15_daemon")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, 0,
-         extras_launches["K1"], 0, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by),
+         extras_launches["K1"], 0, 0, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_trace_launches,
-         extras_launches["K2"], k2_rebalance, k2_err, k2_ms, k2_plain_ms, k2_bound,
-         k2_bound_by),
+         extras_launches["K2"], k2_rebalance, k2_daemon, k2_err, k2_ms, k2_plain_ms,
+         k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, 0, 0, k3_err, k3_ms,
-         k3_plain_ms, k3_bound, k3_bound_by),
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, 0, 0, 0, k3_err,
+         k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "trace_launches": trace_launches,
-        "extras_launches": extras_n, "rebalance_launches": rebalance_n, "max_abs_err": err,
+        "extras_launches": extras_n, "rebalance_launches": rebalance_n,
+        "daemon_launches": daemon_n, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         # no PyTorch call computes a sequential greedy assignment
         "library_ms": None, "parity": "exact",
-    } for name, source, replaces, launches, trace_launches, extras_n, rebalance_n, err, ms,
-        plain_ms, bound_ms, bound_by in entries]}))
+    } for name, source, replaces, launches, trace_launches, extras_n, rebalance_n, daemon_n,
+        err, ms, plain_ms, bound_ms, bound_by in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

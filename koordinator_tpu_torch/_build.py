@@ -95,6 +95,20 @@ def add_build_listener(cb):
     return unregister
 
 
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (the daemon's
+    ``--kernel-build-dir``); variants already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+
+
+def loaded_variants() -> list:
+    """``(source, defines)`` of every variant loaded in this process, in
+    order of first load."""
+    with _LOCK:
+        return list(_LOADED)
+
+
 def local_includes(src: Path) -> list:
     """The files ``src`` includes with ``#include "..."`` that exist beside
     it, and theirs in turn, each once, in order of first inclusion."""
@@ -134,7 +148,7 @@ def build(source: str, defines=()) -> _Built:
         src = PACKAGE_DIR / source
         flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         digest = source_digest(src, flags)
-        BUILD_DIR.mkdir(exist_ok=True)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
         log_path = out.with_suffix(".log")
         seconds = 0.0

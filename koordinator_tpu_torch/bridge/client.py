@@ -23,8 +23,12 @@ runtime is needed.  Two channels carry them:
 
 Both channels raise :class:`RpcError`, whose ``code()`` is a
 ``bridge/server.py StatusCode``, so the retry, shed and deadline logic
-below is one for both.  Routing to read replicas comes with replication
-(``parse_follower_target`` parses their targets).
+below is one for both.
+
+Read replicas (``followers=``): Score round-robins over the followers'
+leaf layer and falls back to the leader for a follower that lags; Sync
+and Assign go to the leader, and on a follower's "one writer" refusal or
+a dead leader they probe the tier for the promoted one.
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ _TRANSIENT_CODES = (StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED)
 # IsDeadlineExceeded
 _RAW_CODES = (
     ("is not resident", StatusCode.FAILED_PRECONDITION),
+    # a read replica's Sync refusal (replication/follower.py NotLeader)
+    ("one writer", StatusCode.FAILED_PRECONDITION),
     ("RESOURCE_EXHAUSTED", StatusCode.RESOURCE_EXHAUSTED),
     ("BREAKER_OPEN", StatusCode.UNAVAILABLE),
     ("DEADLINE_EXCEEDED", StatusCode.DEADLINE_EXCEEDED),
@@ -120,6 +126,16 @@ def _is_shed(exc: BaseException) -> bool:
     return (
         isinstance(exc, RpcError)
         and exc.code() == StatusCode.RESOURCE_EXHAUSTED
+    )
+
+
+def _is_not_leader(exc: BaseException) -> bool:
+    """A follower's Sync refusal: a probe result, not an error — the
+    promoted leader is elsewhere."""
+    return (
+        isinstance(exc, RpcError)
+        and exc.code() == StatusCode.FAILED_PRECONDITION
+        and "one writer" in (exc.details() or "")
     )
 
 
@@ -310,6 +326,7 @@ def _stub(channel, method: str):
 
 class ScorerClient:
     def __init__(self, target: str, channels: int = 1,
+                 followers: Sequence[str] = (),
                  retry_policy: Optional[BackoffPolicy] = None,
                  band: str = "",
                  deadline_ms: Optional[float] = None,
@@ -323,6 +340,17 @@ class ScorerClient:
         parallelism.  Sync stays PINNED to the first connection: delta
         frames are order-sensitive against the acked baseline, and one
         connection preserves their wire order.
+
+        ``followers``: targets of read-replica daemons (either scheme).
+        Sync keeps going to ``target`` (the leader, the tier's one
+        writer); Score round-robins over the followers, and a follower
+        still catching up (its FAILED_PRECONDITION means "that generation
+        has not replicated here yet") falls back to the leader for that
+        one call.  Assign stays on the leader.  A target may carry a
+        relay-tree depth (``"raw:///f.sock@2"``); Score then uses the
+        deepest layer only.  Sync and Assign retries probe every
+        follower for a promoted leader: a follower's "one writer" refusal
+        means "not me, keep looking".
 
         ``retry_policy``: the shared jittered-exponential backoff and
         deadline budget (``replication.retry.BackoffPolicy``; default
@@ -370,6 +398,27 @@ class ScorerClient:
         self._sync = _stub(self._channel, "Sync")
         self._scores = [_stub(ch, "Score") for ch in self._pool.channels]
         self._assigns = [_stub(ch, "Assign") for ch in self._pool.channels]
+        parsed = [parse_follower_target(t) for t in followers]
+        self._follower_depths = [d for _, d in parsed]
+        self._follower_pools = [_ChannelPool(t, 1) for t, _ in parsed]
+        # the leaf layer (the deepest annotated depth) is Score's
+        # round-robin set; every follower stays in the writer probe order
+        max_depth = max(self._follower_depths, default=0)
+        self._leaf_indices = [
+            i for i, d in enumerate(self._follower_depths) if d == max_depth
+        ]
+        self._follower_scores = [
+            _stub(p.channels[0], "Score") for p in self._follower_pools
+        ]
+        self._follower_syncs = [
+            _stub(p.channels[0], "Sync") for p in self._follower_pools
+        ]
+        self._follower_assigns = [
+            _stub(p.channels[0], "Assign") for p in self._follower_pools
+        ]
+        # which target holds the writer role: -1 = the configured leader,
+        # i = follower i, promoted (found by a writer probe)
+        self._leader_idx = -1
         self._rr = itertools.count()
         self._rr_lock = witness_lock("bridge.client.ScorerClient._rr_lock")
         # previous-ACKED-sync mirrors (tensor + scalar columns) for delta
@@ -395,6 +444,8 @@ class ScorerClient:
 
     def close(self) -> None:
         self._pool.close()
+        for p in self._follower_pools:
+            p.close()
         if self._exporter is not None:
             self._exporter.close()
 
@@ -454,34 +505,88 @@ class ScorerClient:
             return min(hint, self._retry.cap_ms)
         return d_ms
 
+    def _writer_stubs(self, kind: str):
+        """``(idx, stub)`` probe order for a writer-side RPC: the target
+        last seen holding the writer role first, then every other one
+        (the configured leader, then each follower)."""
+        leader_stub = (
+            self._sync if kind == "sync" else self._assigns[self._slot()]
+        )
+        table = [(-1, leader_stub)] + list(enumerate(
+            self._follower_syncs if kind == "sync" else self._follower_assigns
+        ))
+        active = self._leader_idx
+        table.sort(key=lambda e: 0 if e[0] == active else 1)
+        return table
+
     def _call_writer(self, kind: str, request, op=None):
-        """Invoke a writer-side RPC (Sync/Assign) through the shared
-        backoff policy: transient errors retry, sheds retry after the
-        server's hint, anything else surfaces immediately (it is the
-        SERVER's answer).  The delta baseline is never touched here."""
+        """Invoke a writer-side RPC (Sync/Assign) on the active leader,
+        failing over through the shared backoff policy: transient errors
+        retry, "one writer" refusals probe the next candidate, sheds retry
+        after the server's hint, anything else surfaces immediately (it is
+        the SERVER's answer).  The delta baseline is never touched here."""
         delays = self._retry.delays()
         timeout = self._timeout_s()
         while True:
-            stub = self._sync if kind == "sync" else self._assigns[self._slot()]
-            try:
-                return self._traced_call(op, stub, request, timeout)
-            except RpcError as exc:
-                if not (_is_transient(exc) or _is_shed(exc)):
+            last: Optional[BaseException] = None
+            for idx, stub in self._writer_stubs(kind):
+                try:
+                    reply = self._traced_call(op, stub, request, timeout)
+                    self._leader_idx = idx
+                    return reply
+                except RpcError as exc:
+                    if _is_not_leader(exc) or _is_transient(exc) or _is_shed(exc):
+                        last = exc
+                        continue
                     raise
-                pause = self._pause_ms(delays, exc)
-                if pause is None:
-                    raise
-                time.sleep(pause / 1000.0)
+            pause = self._pause_ms(delays, last)
+            if pause is None:
+                raise last
+            time.sleep(pause / 1000.0)
+
+    def _score_stub(self):
+        """``(stub, on_follower)``: round-robin over the leaf-layer
+        followers when configured, else over the leader's pool."""
+        if self._follower_scores:
+            with self._rr_lock:
+                i = self._leaf_indices[next(self._rr) % len(self._leaf_indices)]
+            return self._follower_scores[i], True
+        return self._scores[self._slot()], False
+
+    def _leader_score_stub(self):
+        """The active writer's Score stub, the lag fallback: after a
+        promotion the configured leader may be dead, so the fallback
+        follows the role."""
+        if 0 <= self._leader_idx < len(self._follower_scores):
+            return self._follower_scores[self._leader_idx]
+        return self._scores[self._slot()]
 
     def _call_score(self, request, op=None):
         """Reads retry freely: they are idempotent against a named
-        snapshot, so a transient error moves to the pool's next connection
-        under the shared backoff budget; a shed retries after the server's
-        hint."""
+        snapshot, so a transient error moves to the next replica or
+        connection under the shared backoff budget; a shed retries after
+        the server's hint."""
         delays = self._retry.delays()
+        timeout = self._timeout_s()
         while True:
+            stub, on_follower = self._score_stub()
+            if on_follower:
+                try:
+                    return self._traced_call(op, stub, request, timeout)
+                except RpcError as e:
+                    if _is_transient(e) or _is_shed(e):
+                        pause = self._pause_ms(delays, e)
+                        if pause is None:
+                            raise
+                        time.sleep(pause / 1000.0)
+                        continue  # the next replica
+                    if e.code() != StatusCode.FAILED_PRECONDITION:
+                        raise
+                    # the follower has not applied this generation yet:
+                    # the leader certified the id, so the baseline is
+                    # fine — serve this call there
             try:
-                return self._call(self._scores[self._slot()], request, op=op)
+                return self._call(self._leader_score_stub(), request, op=op)
             except RpcError as e:
                 if not (_is_transient(e) or _is_shed(e)):
                     raise

@@ -32,8 +32,15 @@ Where the port differs from the reference:
   Score reads back the feasibility of its top-k cells only ([P, k], the
   ``ok`` matrix), not the [P, N] feasible tensor — except where the
   brownout cache keeps the full tensors (``KOORD_BROWNOUT_FULL_CELLS``).
-* the sharded Assign (``mesh=``) and replication are not ported (ROADMAP
-  Queue A items 13 and 15).
+* the sharded Assign (``mesh=``) is not ported (ROADMAP Queue A item 13).
+
+Replication seam, as in the reference: ``journal_hook`` and then
+``replication_hook`` run under ``_sync_lock`` after every committed Sync,
+with the client's original bytes where the transport had them
+(``wire_bytes``); ``export_replication_snapshot`` is the full-state frame
+a subscriber opens with, and ``apply_replica_frame`` applies a leader's
+frame — a delta through the same stage/commit seam and commit rule as a
+client Sync, a full frame onto a fresh ``ResidentState``.
 """
 
 from __future__ import annotations
@@ -298,6 +305,12 @@ class ScorerServicer:
         # what the breaker-open path serves).  Guarded by _state_lock.
         self._brownout = None
         self.degraded_replies = 0
+        # replication seam: the leader's publisher streams every committed
+        # Sync through replication_hook, and the frame journal appends it
+        # through journal_hook first (durability, then fan-out); both run
+        # under _sync_lock, so frames leave in generation order
+        self.replication_hook = None
+        self.journal_hook = None
         self.dispatch = CoalescingDispatcher(
             self._score_launch_batch,
             max_batch=coalesce_max_batch,
@@ -376,11 +389,17 @@ class ScorerServicer:
         with the old chain."""
         with self._sync_lock:
             with self._state_lock:
-                self._epoch = epoch or uuid.uuid4().hex[:8]
-                self._assign_memo.clear()
-                if self._score_memo is not None:
-                    self._score_memo.invalidate()
-                return self.snapshot_id()
+                return self._rebase_epoch_locked(epoch)
+
+    def _rebase_epoch_locked(self, epoch: Optional[str] = None) -> str:
+        """The bump itself, ``_sync_lock`` and ``_state_lock`` held;
+        ``FollowerServicer.promote`` composes it with its promoted flag
+        under one hold."""
+        self._epoch = epoch or uuid.uuid4().hex[:8]
+        self._assign_memo.clear()
+        if self._score_memo is not None:
+            self._score_memo.invalidate()
+        return self.snapshot_id()
 
     def _stale_snapshot(
         self, want: str, sid: Optional[str] = None
@@ -415,13 +434,17 @@ class ScorerServicer:
         )
 
     # -- RPC bodies --
-    def sync(self, req: "wire.SyncRequest", ctx=None) -> "wire.SyncReply":
-        """Tracing shell over :meth:`_sync_impl`."""
+    def sync(self, req: "wire.SyncRequest", ctx=None,
+             wire_bytes: Optional[bytes] = None) -> "wire.SyncReply":
+        """Tracing shell over :meth:`_sync_impl`.  ``wire_bytes``: the
+        client's original frame, when the transport has it (the raw
+        framing does), which the journal and the publisher then carry
+        verbatim instead of a re-encode."""
         tspan = self._start_rpc_span("sync", req)
         if tspan is None:
-            return self._sync_impl(req)
+            return self._sync_impl(req, wire_bytes)
         try:
-            reply = self._sync_impl(req)
+            reply = self._sync_impl(req, wire_bytes)
         except BaseException as exc:
             tspan.abort(exc)
             raise
@@ -430,7 +453,8 @@ class ScorerServicer:
         tspan.end()
         return reply
 
-    def _sync_impl(self, req: "wire.SyncRequest") -> "wire.SyncReply":
+    def _sync_impl(self, req: "wire.SyncRequest",
+                   wire_bytes: Optional[bytes] = None) -> "wire.SyncReply":
         # phase 1 under _sync_lock only: the wire->numpy decode runs while
         # coalesced Scores launch
         with self._sync_lock:
@@ -489,7 +513,139 @@ class ScorerServicer:
                 plan_cell[0] = self.state.plan_commit(staged)
                 return self.state.commit_donates(staged, plan=plan_cell[0])
 
-            return self.dispatch.run_exclusive(commit, drain=_decide_drain)
+            reply = self.dispatch.run_exclusive(commit, drain=_decide_drain)
+            # still under _sync_lock: frames are journaled and published in
+            # generation order.  The Sync is committed either way, so a
+            # hook's failure is logged, never the client's error
+            for name, hook in (("journal append", self.journal_hook),
+                               ("replication publish", self.replication_hook)):
+                if hook is None:
+                    continue
+                try:
+                    hook(req, reply.snapshot_id, wire_bytes)
+                except Exception:  # the acked write stands; followers detect the gap and resync
+                    logger.exception("%s failed for %s", name, reply.snapshot_id)
+            return reply
+
+    # -- replication seam --
+    def export_replication_snapshot(self):
+        """``(epoch, generation, payload)`` of the current resident state:
+        the full frame a new or resyncing subscriber receives.  ``payload``
+        is the full-state SyncRequest bytes (empty before the first Sync).
+        Read under ``_state_lock``, so the pair is one committed Sync's
+        outcome."""
+        with self._state_lock:
+            epoch, gen = self._epoch, self._generation
+            req = self.state.export_sync_request()
+        return epoch, gen, (b"" if req is None else req.SerializeToString())
+
+    def apply_replica_frame(self, frame, origin: str = "replica_apply") -> dict:
+        """Apply one replication frame (``replication/codec.py Frame``) and
+        adopt the leader's ``(epoch, generation)``.  Continuity is the
+        caller's (``replication/follower.py ReplicaApplier``).
+
+        * a delta frame runs the stage/commit seam a client Sync runs,
+          under the same commit rule: a commit that writes into resident
+          tensors (``ResidentState.commit_donates``) drains the in-flight
+          launches first;
+        * a full frame stages onto a FRESH ``ResidentState`` and swaps it
+          in without a drain: nothing resident is written, and in-flight
+          launches keep their own tensors.
+
+        A frame that fails validation raises before anything changes.  A
+        payload carrying a trace id opens a consumer span (``origin``:
+        ``replica_apply`` or ``journal_replay``) in the originating
+        trace."""
+        from koordinator_tpu_torch.replication import codec
+
+        payload = frame.payload
+        # an empty FULL payload resets to the empty pre-first-Sync state;
+        # an empty DELTA payload is a real no-change Sync and applies
+        if frame.kind == codec.KIND_FULL:
+            req = wire.SyncRequest.FromString(payload) if payload else None
+        else:
+            req = wire.SyncRequest.FromString(payload)
+        aspan = None
+        if req is not None and (getattr(req, "trace_id", "") or ""):
+            aspan = self.telemetry.spans.start_trace_span(
+                origin, req.trace_id,
+                parent_id=getattr(req, "parent_span", "") or None,
+                kind="consumer",
+                attrs={
+                    "epoch": frame.epoch,
+                    "generation": int(frame.generation),
+                    "frame_kind": (
+                        "full" if frame.kind == codec.KIND_FULL else "delta"
+                    ),
+                },
+            )
+        try:
+            with self._sync_lock:
+                if frame.kind == codec.KIND_FULL:
+                    fresh = ResidentState(device=self.device)
+                    staged = None if req is None else fresh.stage_sync(req)
+
+                    def commit_full() -> dict:
+                        with self._state_lock:
+                            self.state = fresh
+                            info = (
+                                {"path": "cold", "delta_tensors": 0,
+                                 "full_tensors": 0}
+                                if staged is None
+                                else fresh.commit_sync(staged)
+                            )
+                            self._adopt_replica_locked(frame, info)
+                            return info
+
+                    info = self.dispatch.run_exclusive(commit_full, drain=False)
+                else:
+                    staged = self.state.stage_sync(req)
+                    plan_cell = [None]
+
+                    def commit_seq() -> dict:
+                        with self._state_lock:
+                            info = self.state.commit_sync(
+                                staged, plan=plan_cell[0]
+                            )
+                            self._adopt_replica_locked(frame, info)
+                            return info
+
+                    def _decide_drain() -> bool:
+                        plan_cell[0] = self.state.plan_commit(staged)
+                        return self.state.commit_donates(
+                            staged, plan=plan_cell[0]
+                        )
+
+                    info = self.dispatch.run_exclusive(
+                        commit_seq, drain=_decide_drain
+                    )
+        except BaseException as exc:
+            if aspan is not None:
+                aspan.abort(exc)
+            raise
+        if aspan is not None:
+            aspan.set_attr("snapshot_id", self.snapshot_id())
+            aspan.end()
+        return info
+
+    def _adopt_replica_locked(self, frame, info) -> None:
+        """Adopt the leader's snapshot id after a replica apply
+        (``_state_lock`` held): epoch and generation move to the frame's,
+        and the memos die as on a client Sync."""
+        self._epoch = frame.epoch
+        self._generation = frame.generation
+        self._assign_memo.clear()
+        if self._score_memo is not None:
+            self._score_memo.invalidate()
+        # the same backlog valve as a client Sync: a follower applying an
+        # endless stream with no Assign must not grow one pending cycle
+        self.telemetry.flush_backlog()
+        self.telemetry.record_sync(
+            info,
+            snapshot_id=self.snapshot_id(),
+            epoch=frame.epoch,
+            generation=frame.generation,
+        )
 
     def score(self, req: "wire.ScoreRequest", ctx=None) -> "wire.ScoreReply":
         """Tracing shell over :meth:`_score_impl`."""

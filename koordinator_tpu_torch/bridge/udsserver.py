@@ -14,13 +14,14 @@ One connection may carry any number of sequential request/reply pairs.
 Admin-plane methods (the reference's 4 = Promote and 5 = Profile) are
 registered through ``RawUdsServer(admin_handlers=...)``: Profile's handler
 is ``obs/devprof.py capture_profile`` (the payload an ASCII window in ms,
-the reply the capture directory); Promote waits for replication (ROADMAP
-Queue A item 15).  ``bridge/client.py ScorerClient("raw:///path")`` is the
+the reply the capture directory); Promote's is the daemon's
+(``scheduler/server.py``), the reply the promoted snapshot id.  ``bridge/client.py ScorerClient("raw:///path")`` is the
 Python client of this framing.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import socket
@@ -122,6 +123,11 @@ class RawUdsServer:
             METHOD_SCORE: (wire.ScoreRequest, self.servicer.score),
             METHOD_ASSIGN: (wire.AssignRequest, self.servicer.assign),
         }
+        # the client's original Sync bytes go to a sync() that takes them;
+        # a wrapper whose sync() does not is served without, and the
+        # journal and publisher re-encode the decoded message
+        self._sync_takes_wire = "wire_bytes" in inspect.signature(
+            self.servicer.sync).parameters
 
     def start(self) -> "RawUdsServer":
         self._thread.start()
@@ -255,7 +261,13 @@ class RawUdsServer:
                 req_cls, fn = entry
                 try:
                     req = req_cls.FromString(payload)
-                    out = fn(req, None).SerializeToString()
+                    if method == METHOD_SYNC and self._sync_takes_wire:
+                        # the client's original bytes: the journal and the
+                        # replication publisher carry them verbatim
+                        reply = fn(req, None, wire_bytes=payload)
+                    else:
+                        reply = fn(req, None)
+                    out = reply.SerializeToString()
                     if len(out) > _MAX_FRAME:
                         # every client enforces the same cap on replies; a
                         # full-matrix flat Score (top_k=0) at 10k x 2k is

@@ -115,7 +115,6 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 from koordinator_tpu_torch.koordlet.metrics import DEFAULT_BUCKETS_MS, MetricsRegistry
-from koordinator_tpu_torch.replication.admission import band_label
 
 CYCLE_LATENCY = "koord_scorer_cycle_latency_ms"
 CYCLE_ROUNDS = "koord_scorer_cycle_rounds"
@@ -411,19 +410,19 @@ _FAMILIES = (
      "breakdown of koord_scorer_jit_cache_miss_total the ledger names "
      "in /healthz and the report CLI"),
     (PREWARM_SIGNATURES, "counter",
-     "signatures the boot-time AOT prewarm thread processed from <state-dir>/prewarm.pkl, by "
-     "result: compiled replayed through lower().compile(), skipped "
-     "had no replay spec or no resolvable boundary, failed raised "
-     "(code/backend drift since capture — the live path still "
-     "compiles inline)"),
+     "kernel variants the boot-time prewarm thread rebuilt from "
+     "<state-dir>/prewarm.json, by result: compiled built (or loaded) "
+     "and ready, skipped not replayable here (a CPU daemon, or a source "
+     "no longer in the package), failed raised (the live path still "
+     "builds at first launch)"),
     (PREWARM_COMPILE_MS, "counter",
-     "cumulative compile wall-time the prewarm thread spent replaying "
-     "persisted signatures; with a warm persistent XLA cache this "
-     "collapses to trace time only"),
+     "cumulative build wall-time the prewarm thread spent on recorded "
+     "kernel variants; with the library already in the build directory "
+     "this collapses to the load"),
     (PREWARM_PENDING, "gauge",
-     "replayable signatures the prewarm thread has not reached yet "
-     "(0 = prewarm done; a request arriving for a pending signature "
-     "just compiles inline, exactly as an unprewarmed boot)"),
+     "recorded kernel variants the prewarm thread has not reached yet "
+     "(0 = prewarm done; a launch needing a pending variant just builds "
+     "it inline, as an unprewarmed boot does)"),
 )
 
 # journal appends are MICROsecond-scale (a header pack + one buffered
@@ -599,6 +598,11 @@ class ScorerMetrics:
 
     # -- replicated serving tier --
     def count_shed(self, method: str, band: str = "") -> None:
+        # imported here: replication/admission.py imports obs (its lock
+        # witness), so a module-level import would make
+        # ``import koordinator_tpu_torch.replication`` fail as a first import
+        from koordinator_tpu_torch.replication.admission import band_label
+
         self.registry.counter_add(SHED_TOTAL, 1, {"method": method})
         self.registry.counter_add(
             SHED_BAND, 1, {"band": band_label(band)}

@@ -1,9 +1,10 @@
 """The PyTorch port runs where JAX is absent: it imports neither ``jax`` nor
 the JAX package nor the protobuf runtime, imports ``grpc`` only inside the
-two functions that build gRPC transports (the server's and the client's),
-serves and replays a trace over the raw framing with all three blocked, and
-``chip_smoke.py`` refuses to run without a CUDA card or without the port
-beside it."""
+two functions that build gRPC transports (the server's and the client's)
+and ``yaml`` only inside ``load_config``, serves and replays a trace over
+the raw framing with all three blocked, runs the daemon tier (a leader
+and a follower) with ``yaml`` blocked too, and ``chip_smoke.py`` refuses
+to run without a CUDA card or without the port beside it."""
 
 import ast
 import json
@@ -253,3 +254,85 @@ def test_chip_smoke_fails_without_cuda():
     assert out.returncode != 0
     assert out.stdout.strip() == ""
     assert "CUDA is not available" in out.stderr
+
+
+def _lazy_import_sites(path: Path, top: str):
+    """(enclosing function or None) of every import of ``top``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    sites = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                names = [child.module]
+            if any(n.split(".")[0] == top for n in names):
+                sites.append(func)
+            visit(child, inner)
+
+    visit(tree, None)
+    return sites
+
+
+def test_yaml_is_imported_only_where_a_config_string_is_parsed():
+    sites = {str(p.relative_to(REPO)): _lazy_import_sites(p, "yaml")
+             for p in sorted(PORT.rglob("*.py"))}
+    assert {p: s for p, s in sites.items() if s} == {
+        "koordinator_tpu_torch/scheduler/config_api.py": ["load_config"]}
+
+
+_DAEMONS = r"""
+import json, os, sys, tempfile, time
+for blocked in ("jax", "jaxlib", "grpc", "yaml", "google.protobuf"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+import numpy as np
+from koordinator_tpu_torch.bridge.client import ScorerClient
+from koordinator_tpu_torch.model import resources as res
+from koordinator_tpu_torch.harness import generators
+from koordinator_tpu_torch.scheduler.server import SchedulerServer
+d = tempfile.mkdtemp(prefix="ki", dir="/tmp")
+common = dict(device="cpu", enable_grpc=False, http_port=0)
+leader = SchedulerServer(lease_path=d + "/l.lease", uds_path=d + "/l.sock",
+                         state_dir=d + "/l", journal=True, prewarm=True, **common).start()
+follower = SchedulerServer(lease_path=d + "/f.lease", uds_path=d + "/f.sock",
+                           state_dir=d + "/f", replicate_from=d + "/l.sock.repl",
+                           **common).start()
+cli = ScorerClient("raw://" + d + "/l.sock.raw", followers=["raw://" + d + "/f.sock.raw"])
+try:
+    nodes, pods, _, _ = generators.quota_colocation(pods=24, nodes=6)
+    deadline = time.time() + 60
+    while not leader.elector.is_leader and time.time() < deadline:
+        time.sleep(0.05)
+    sid = cli.sync(
+        node_allocatable=np.asarray([res.resource_vector(n["allocatable"]) for n in nodes]),
+        node_names=[n["name"] for n in nodes],
+        pod_requests=np.asarray([res.resource_vector(p["requests"]) for p in pods]),
+        pod_names=[p["name"] for p in pods]).snapshot_id
+    while follower.servicer.snapshot_id() != sid and time.time() < deadline:
+        time.sleep(0.02)
+    groups = len(cli.score_flat(top_k=3)[1])
+    assignment = cli.assign()[0]
+finally:
+    cli.close()
+    follower.stop()
+    leader.stop()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "grpc", "yaml", "koordinator_tpu")
+    or m.startswith("google.protobuf")))
+print(json.dumps({"replicated": follower.servicer.snapshot_id() == sid, "groups": groups,
+                  "assigned": len(assignment), "loaded": loaded}))
+"""
+
+
+def test_the_daemon_tier_serves_with_jax_grpc_yaml_and_protobuf_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMONS], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"replicated": True, "groups": 24, "assigned": 24, "loaded": []}
