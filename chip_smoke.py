@@ -145,7 +145,43 @@ Phases (any failure raises and exits non-zero, printing no result):
     none failed; then the leader stopped, the follower promoted (admin
     method 4) and the client's next Sync finding it, with one full resync
     on the new epoch, and the same Assign.  ``daemon_launches`` on the
-    ``kernels`` line counts the line's K2 launches.
+    ``kernels`` line counts the line's K2 launches;
+16. (run before phase 10's lines) ``chaos``: the chaos x trace gate
+    (``harness/chaos.py ChaosTraceReplay``, over the raw framing) on the
+    reference's accelerator trace (128 nodes x 512 pod slots, 48 events,
+    its digest against ``CHAOS_ANCHOR_SHA256``; the launch poison at event
+    12, the leader killed at 32 and warm-restarted from its journal on the
+    same socket, tracing on): parity with the unfaulted oracle, no build
+    and no demotion after recovery, recovery measured, breaker trips,
+    degraded replies, assembled traces with no orphan client span, the
+    killed leader collected before the restart, the SLO verdicts with
+    the recovery SLO, the overload band storm (free band shed, prod band
+    not); the same gate at the headline trace (2,000 nodes x 10,000 pod
+    slots, 24 events, poison at 6, kill at 16), two of its K2 launches
+    held against ``cycle_wide_reference`` on the CPU; then ``ChaosTier``
+    at the headline (two followers behind channels that drop, duplicate,
+    reorder and corrupt; a crash and warm restart, a torn journal tail,
+    a promotion, convergence: mirror and flat-Score byte parity with the
+    oracle, no torn snapshot on any delivery);
+17. (run before phase 10's lines) ``tree``: ``harness/relay.py
+    RelayTier(chain=3, flat=1, compress=True, batch_bytes=64 KiB)`` at the
+    headline (five daemons on the card): a cold converge, 10 O(changed)
+    delta Syncs, flat Score bytes at k = 32 equal at the root, the leaf
+    and the flat follower, one Assign (K2) at the root and one at the leaf,
+    equal; an interior hop killed in a delta storm with no full open and
+    no resync; ``autoscale_wave`` with real leaf daemons as its lever; the
+    peak device memory;
+18. (run before phase 10's lines) ``preempt``: ``post_filter_preempt``
+    over the pods the extras cycle on K2 left unplaced, at the anchor
+    recipe (its digest against ``PREEMPT_ANCHOR_SHA256``) and at the
+    headline on the ``extras`` line's placements (``harness/preempt.py``
+    inventory; ms, pods with victims, victims, digest); then a
+    ``ReservationController`` tick that expires the reservations past
+    their TTL, ``active_reservations()`` re-encoded and the extras cycle
+    re-run on K2 (held against the plain version): expired count and the
+    placements that moved.  ``chaos_launches``, ``tree_launches`` and
+    ``preempt_launches`` on the ``kernels`` line count each line's
+    launches.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -931,8 +967,7 @@ def bridge_phase(card, dev, snap, lists, headline):
     from koordinator_tpu_torch.harness import generators as g
     from koordinator_tpu_torch.harness.golden import build_sync_request
     from koordinator_tpu_torch.solver import (
-        dense, kernel_demotions, masked_top_k, run_cycle, score_cycle, score_upper_bound,
-        wide,
+        kernel_demotions, masked_top_k, run_cycle, score_cycle, score_upper_bound,
     )
 
     node_list, pod_list, gangs, quotas = lists
@@ -954,14 +989,6 @@ def bridge_phase(card, dev, snap, lists, headline):
         srv = RawUdsServer(path, servicer=ScorerServicer(device=dev, **kw)).start()
         servers.append(srv)
         return srv, UdsClient(path)
-
-    def counts():
-        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
-
-    def reset():
-        torch.cuda.synchronize()
-        dense.reset_launches()
-        wide.reset_launches()
 
     def same_placements(reply, want):
         return (list(reply.assignment) == want.assignment[:P].cpu().tolist()
@@ -995,10 +1022,10 @@ def bridge_phase(card, dev, snap, lists, headline):
         full_sync_ip = [sync_in_process(req) for _ in range(3)]
 
         # the first Assign: K2, exactly one launch, no demotion
-        reset()
+        reset_counts()
         first, ev, wall = rpc_timed(lambda: cli.call(
             METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sync.snapshot_id), wire.AssignReply))
-        launches = counts()
+        launches = kernel_counts()
         if launches != {"cycle_dense": 0, "cycle_wide": 1, "wave_cycle": 0} or kernel_demotions():
             raise AssertionError(f"bridge: first Assign launched {launches}, "
                                  f"demotions {kernel_demotions()}")
@@ -1018,7 +1045,7 @@ def bridge_phase(card, dev, snap, lists, headline):
         cur = map_snapshot(snap, lambda t: t.clone())
         prev = np.frombuffer(req.nodes.requested.data, "<i8").reshape(N, -1).copy()
         delta_rpc, assign_rpc, delta_bytes, assign_split = [], [], [], []
-        warm_launches = dict.fromkeys(counts(), 0)
+        warm_launches = dict.fromkeys(kernel_counts(), 0)
         for rep in range(3):
             nxt = prev.copy()
             nxt[:3, 0] += 500 + rep
@@ -1032,13 +1059,13 @@ def bridge_phase(card, dev, snap, lists, headline):
             delta_rpc.append((ev, wall))
             if srv.servicer.state.last_sync_path != "warm":
                 raise AssertionError("bridge: the delta Sync did not land warm")
-            reset()
+            reset_counts()
             reply, ev, wall = rpc_timed(lambda: cli.call(
                 METHOD_ASSIGN, wire.AssignRequest(snapshot_id=s2.snapshot_id),
                 wire.AssignReply))
             assign_rpc.append((ev, wall))
             assign_split.append(dict(cli.split))
-            for kernel, n in counts().items():
+            for kernel, n in kernel_counts().items():
                 warm_launches[kernel] += n
             cur.nodes.requested[:3, 0] = torch.from_numpy(nxt[:3, 0]).to(dev)
             if not same_placements(reply, run_cycle(cur)):
@@ -1115,7 +1142,7 @@ def bridge_phase(card, dev, snap, lists, headline):
 
         # the cold Assign: the resident state replaced, a full Sync, an Assign
         cold_sync, cold_assign = [], []
-        reset()
+        reset_counts()
         for _ in range(3):
             srv.servicer.state = ResidentState(device=dev)
             sc, ev, wall = rpc_timed(lambda: cli.call(METHOD_SYNC, req, wire.SyncReply))
@@ -1126,7 +1153,7 @@ def bridge_phase(card, dev, snap, lists, headline):
             cold_assign.append((ev, wall))
             if not same_placements(reply, headline):
                 raise AssertionError("bridge: cold Assign != phase 4's run_cycle")
-        cold_launches = counts()
+        cold_launches = kernel_counts()
         exact["cold_assigns_vs_run_cycle"] = True
         line["full_sync"] = seam_cost(full_sync + cold_sync, full_sync_ip)
 
@@ -1202,10 +1229,10 @@ def bridge_phase(card, dev, snap, lists, headline):
         # K3 and K1 through the same servicer
         srv_w, cli_w = start("wave", cfg=CycleConfig(**WAVE_CFG))
         sw = cli_w.call(METHOD_SYNC, req, wire.SyncReply)
-        reset()
+        reset_counts()
         reply, ev, wall = rpc_timed(lambda: cli_w.call(
             METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sw.snapshot_id), wire.AssignReply))
-        k3 = counts()
+        k3 = kernel_counts()
         if k3 != {"cycle_dense": 0, "cycle_wide": 0, "wave_cycle": 1} or not same_placements(
                 reply, headline):
             raise AssertionError(f"bridge: wave Assign launched {k3} or differs")
@@ -1219,10 +1246,10 @@ def bridge_phase(card, dev, snap, lists, headline):
                                          pod_bucket=P, device=dev)
         srv_x, cli_x = start("int64")
         sx = cli_x.call(METHOD_SYNC, req_x, wire.SyncReply)
-        reset()
+        reset_counts()
         reply, ev, wall = rpc_timed(lambda: cli_x.call(
             METHOD_ASSIGN, wire.AssignRequest(snapshot_id=sx.snapshot_id), wire.AssignReply))
-        k1 = counts()
+        k1 = kernel_counts()
         if k1 != {"cycle_dense": 1, "cycle_wide": 0, "wave_cycle": 0} or not same_placements(
                 reply, run_cycle(snap_x)):
             raise AssertionError(f"bridge: int64 Assign launched {k1} or differs")
@@ -1465,8 +1492,6 @@ def trace_phase(card, dev):
     import struct
     import tempfile
 
-    import torch
-
     from koordinator_tpu_torch.bridge.server import ScorerServicer
     from koordinator_tpu_torch.bridge.udsserver import METHOD_PROFILE, RawUdsServer
     from koordinator_tpu_torch.harness.anchor import (
@@ -1479,18 +1504,9 @@ def trace_phase(card, dev):
     from koordinator_tpu_torch.obs.assemble import assemble
     from koordinator_tpu_torch.obs.scorer_metrics import SYNC_TOTAL, TRACE_CYCLE
     from koordinator_tpu_torch.obs.slo import evaluate_slos, slos_pass
-    from koordinator_tpu_torch.solver import dense, kernel_demotions, wide
+    from koordinator_tpu_torch.solver import kernel_demotions
 
     line = {"card": card, "transport": "raw UDS through ScorerClient('raw://...')"}
-
-    def counts():
-        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
-
-    def reset():
-        torch.cuda.synchronize()
-        dense.reset_launches()
-        wide.reset_launches()
-
     tensor_events = {}
 
     def checked(name, trace, report, oracle=True):
@@ -1535,9 +1551,9 @@ def trace_phase(card, dev):
         raise AssertionError(f"trace digest {trace.digest()} != {TRACE_ANCHOR_SHA256}")
     line["trace"] = {**TRACE_ANCHOR_CFG, "digest": trace.digest(), "top_k": 8,
                      "cycle_config": "default"}
-    reset()
+    reset_counts()
     report, k2_plain = held("main", trace, range(0, len(trace.events) + 1, 8), transport="raw")
-    launches = counts()
+    launches = kernel_counts()
     want = 2 * 2 * (len(trace.events) + 1)  # two passes, engine and oracle
     if launches != {"cycle_dense": 0, "cycle_wide": want, "wave_cycle": 0}:
         raise AssertionError(f"trace: Assigns launched {launches}, want {want} K2 launches")
@@ -1687,11 +1703,11 @@ def trace_phase(card, dev):
     big = generate_trace(TraceConfig(**TRACE_HEADLINE_CFG))
     if big.digest() != TRACE_HEADLINE_SHA256:
         raise AssertionError(f"headline trace digest {big.digest()} != {TRACE_HEADLINE_SHA256}")
-    reset()
+    reset_counts()
     big_report, big_plain = held("headline", big, (0, len(big.events) // 2, len(big.events)),
                                  transport="raw")
     big_line = checked("headline", big, big_report)
-    big_line.update(launches=counts(), k2_vs_plain=big_plain)
+    big_line.update(launches=kernel_counts(), k2_vs_plain=big_plain)
     if big_line["launches"]["cycle_wide"] != 2 * 2 * (len(big.events) + 1):
         raise AssertionError(f"trace headline: launches {big_line['launches']}")
     line["headline"] = {**TRACE_HEADLINE_CFG, "digest": big.digest(), **big_line}
@@ -1783,7 +1799,9 @@ def launch_counts(prof):
 
 
 def extras_phase(card, dev, counted, only):
-    """The ``extras`` line (phase 13) and the kernels' launches on it."""
+    """The ``extras`` line (phase 13), the kernels' launches on it, and
+    what the ``preempt`` line reads of it: (snapshot, tables, node list,
+    pod list, the K2 cycle's result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1919,7 +1937,7 @@ def extras_phase(card, dev, counted, only):
                   "hooks equal to the CPU path",
         "timed_runs": TIMED_RUNS, "card": card,
     }
-    return line, launches
+    return line, launches, (snap, tables, nodes, pods, result)
 
 
 def rebalance_phase(card, dev, counted, only, snap, lists, oracle):
@@ -2070,13 +2088,11 @@ def daemon_phase(card, dev, lists, headline, snap):
     import tempfile
     import urllib.request
 
-    import numpy as np
     import torch
 
     from koordinator_tpu_torch.analysis.retrace_guard import retrace_guard
     from koordinator_tpu_torch.bridge import wire
     from koordinator_tpu_torch.bridge.client import ScorerClient, parse_snapshot_id
-    from koordinator_tpu_torch.bridge.state import ResidentState
     from koordinator_tpu_torch.obs import prewarm
     from koordinator_tpu_torch.bridge.udsserver import (
         METHOD_ASSIGN, METHOD_PROFILE, METHOD_SCORE, METHOD_SYNC,
@@ -2084,7 +2100,7 @@ def daemon_phase(card, dev, lists, headline, snap):
     from koordinator_tpu_torch.replication import codec
     from koordinator_tpu_torch.replication.follower import promote_replica
     from koordinator_tpu_torch.scheduler.server import SchedulerServer
-    from koordinator_tpu_torch.solver import dense, kernel_demotions, run_cycle, wide
+    from koordinator_tpu_torch.solver import dense, run_cycle, wide
 
     P, N = len(lists[1]), len(lists[0])
     K = 32
@@ -2099,9 +2115,6 @@ def daemon_phase(card, dev, lists, headline, snap):
             "grpc_importable": grpc_ok, "card": card}
     exact = {}
     servers = []
-
-    def counts():
-        return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
 
     def uncounted(fn):
         """``fn()`` (an in-process comparison) without touching the counts."""
@@ -2162,9 +2175,7 @@ def daemon_phase(card, dev, lists, headline, snap):
     cur = map_snapshot(snap, lambda t: t.clone())
     cli = None
     try:
-        torch.cuda.synchronize()
-        dense.reset_launches()
-        wide.reset_launches()
+        reset_counts()
         leader = start("leader", journal=True, prewarm=True)
         wait_for("the leader's election", lambda: leader.elector.is_leader)
         cli = ScorerClient(f"raw://{leader.uds_path}.raw",
@@ -2342,19 +2353,547 @@ def daemon_phase(card, dev, lists, headline, snap):
         line["failover"] = {"promote_to_first_acked_sync_ms": promote_ms,
                             "syncs_on_new_leader": "the delta, then one full resync"}
         torch.cuda.synchronize()
-        launches = counts()
+        launches = kernel_counts()
     finally:
         if cli is not None:
             cli.close()
         for srv in list(servers):
             srv.stop()
-    if launches["cycle_wide"] < 1 or launches["cycle_dense"] or launches["wave_cycle"] \
-            or kernel_demotions():
-        raise AssertionError(f"daemon: the Assigns launched {launches}, "
-                             f"demotions {kernel_demotions()}")
     line["launches"] = launches
     line["exact"] = exact
-    return line, launches["cycle_wide"]
+    return line, only_k2("daemon: the Assigns", launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 16-18: the chaos x trace gate, the relay tree, the PostFilter
+# ---------------------------------------------------------------------------
+
+
+def kernel_counts():
+    """Each kernel's launches since the counts were last set to 0."""
+    from koordinator_tpu_torch.solver import dense, wide
+
+    return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+
+
+def reset_counts():
+    """Every launch count set to 0, the device idle first."""
+    import torch
+
+    from koordinator_tpu_torch.solver import dense, wide
+
+    torch.cuda.synchronize()
+    dense.reset_launches()
+    wide.reset_launches()
+
+
+def only_k2(name, launches):
+    """Fail unless ``launches`` holds K2 launches and nothing else, with no
+    ladder demotion."""
+    from koordinator_tpu_torch.solver import kernel_demotions
+
+    if (launches["cycle_wide"] < 1 or launches["cycle_dense"] or launches["wave_cycle"]
+            or kernel_demotions()):
+        raise AssertionError(f"{name}: launched {launches}, demotions {kernel_demotions()}")
+    return launches["cycle_wide"]
+
+
+def chaos_schedule(events):
+    """The reference bench's fault schedule for a chaos replay of
+    ``events`` events: the launch poison at a quarter, the leader kill at
+    two thirds."""
+    fail_at = max(1, events // 4)
+    return fail_at, max(fail_at + 4, (2 * events) // 3)
+
+
+def histogram_latency(registry):
+    """p50 and p99 in ms of each RPC of a chaos replay, estimated from the
+    trace-cycle histogram as the SLO gate estimates them."""
+    from koordinator_tpu_torch.obs.scorer_metrics import TRACE_CYCLE
+    from koordinator_tpu_torch.obs.slo import histogram_quantile
+
+    return {rpc: {q: histogram_quantile(registry, TRACE_CYCLE, v, {"rpc": rpc})
+                  for q, v in (("p50", 0.5), ("p99", 0.99))}
+            for rpc in ("sync", "score", "assign", "cycle", "recovery")}
+
+
+def sync_messages(req, count, seed):
+    """``count`` O(changed) delta Syncs after the full Sync ``req``: the
+    ``incremental`` recipe of ``daemon_deltas`` (64 node rows of requested
+    and usage, 16 pod rows of cpu request a delta), each field encoded
+    against its previous value."""
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.bridge.state import numpy_to_tensor, tensor_to_numpy
+
+    kw = {"node_allocatable": tensor_to_numpy(req.nodes.allocatable, None),
+          "node_requested": tensor_to_numpy(req.nodes.requested, None),
+          "node_usage": tensor_to_numpy(req.nodes.usage, None),
+          "pod_requests": tensor_to_numpy(req.pods.requests, None)}
+    where = {"node_requested": ("nodes", "requested"), "node_usage": ("nodes", "usage"),
+             "pod_requests": ("pods", "requests")}
+    prev = dict(kw)
+    out = []
+    for step_kw, _ in daemon_deltas(kw, count, seed):
+        msg = wire.SyncRequest()
+        for field, (part, attr) in where.items():
+            getattr(getattr(msg, part), attr).CopyFrom(numpy_to_tensor(step_kw[field],
+                                                                       prev[field]))
+            prev[field] = step_kw[field]
+        out.append(msg)
+    return out
+
+
+# the ChaosTier leg of the ``chaos`` line at the headline: its fault mix
+# (each fault likely enough that all four fire on ~35 frames), the seed of
+# its channels, its Syncs (one full, then CHAOS_TIER_DELTAS deltas, each
+# followed by a convergence check, as the reference's acceptance run does:
+# a follower promoted behind the leader would serve a lost write) and the
+# steps of its faults.  Byte corruption has its own leg
+# (CHAOS_CORRUPT_FRAMES): a replication frame carries no checksum, in the
+# reference too, so a flipped payload byte can apply silently (ROADMAP
+# Queue C) and no parity can be asserted under it.
+CHAOS_TIER_PLAN = {"drop": 0.2, "duplicate": 0.2, "reorder": 0.2, "truncate": 0.2}
+CHAOS_CORRUPT_FRAMES = 8
+CHAOS_TIER_SEED = 0
+CHAOS_TIER_DELTAS = 16
+CHAOS_TIER_STEPS = {"crash_restart": 4, "crash_damage_restart": 8, "crash_promote": 12}
+
+
+def chaos_phase(card, dev, lists):
+    """The ``chaos`` line (phase 16): the chaos x trace gate over the raw
+    framing at the reference's accelerator size and at the headline, then
+    ``ChaosTier`` at the headline.  Returns (line, K2 launches)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from koordinator_tpu_torch.harness.anchor import (
+        CHAOS_ANCHOR_CFG, CHAOS_ANCHOR_SHA256, CHAOS_HEADLINE_CFG, TRACE_HEADLINE_SHA256,
+    )
+    from koordinator_tpu_torch.harness.chaos import (
+        ChaosTier, ChaosTraceReplay, FaultPlan, chaos_trace_slo_specs, flat_score_bytes,
+        overload_band_storm,
+    )
+    from koordinator_tpu_torch.harness.golden import build_sync_request
+    from koordinator_tpu_torch.harness.trace import TraceConfig, generate_trace
+    from koordinator_tpu_torch.obs import slo as slo_mod
+    from koordinator_tpu_torch.obs.assemble import assemble
+    from koordinator_tpu_torch.obs.scorer_metrics import TRACE_CYCLE
+    from koordinator_tpu_torch.obs.slo import SloSpec
+
+    line = {"card": card, "transport": "raw UDS through ScorerClient('raw://...')"}
+    reset_counts()
+
+    def replay(name, cfg, want_digest, tap_steps):
+        """One ChaosTraceReplay: the reference bench's checks, then its
+        numbers; the engine's K2 launches at ``tap_steps`` of the chaos
+        pass (0 = its cold step) held against the plain version."""
+        trace = generate_trace(TraceConfig(**cfg))
+        if trace.digest() != want_digest:
+            raise AssertionError(f"chaos {name}: trace digest {trace.digest()}")
+        events = len(trace.events)
+        fail_at, kill_at = chaos_schedule(events)
+        tmp = tempfile.mkdtemp(prefix="kc")
+        export = os.path.join(tmp, "spans")
+        # the warm-up pass: one engine and one oracle Assign a step; the
+        # chaos pass then opens with the engine's and the oracle's cold
+        # Assigns, and each event's engine Assign follows
+        first = 2 * (events + 1)
+        keep = [first + (0 if s == 0 else s + 1) for s in tap_steps]
+        t0 = time.perf_counter()
+        with K2Tap(keep) as tap:
+            report = ChaosTraceReplay(trace, tmp, fail_at=fail_at, fail_n=4, kill_at=kill_at,
+                                      trace_export=export, device=dev).run()
+        wall_s = time.perf_counter() - t0
+        assembly = assemble([export])
+        checks = {
+            "parity_ok": report.parity_ok,
+            "no_build_after_recovery": report.builds == 0,
+            "no_demotion_after_recovery": report.retraces == 0,
+            "recovery_measured": report.recovery_ms is not None,
+            "breaker_tripped": report.breaker_trips > 0,
+            "degraded_replies": report.degraded_replies > 0,
+            "traces_assembled": len(assembly.traces) > 0,
+            "no_client_orphan_span": not assembly.client_orphans,
+            "dead_leader_collected": report.dead_leader_collected is True,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"chaos {name}: {failed} ({report.parity_detail})")
+        verdicts = slo_mod.evaluate_slos(report.registry, chaos_trace_slo_specs(report.bands))
+        return {**cfg, "digest": trace.digest(), "fail_at": fail_at, "fail_n": 4,
+                "kill_at": kill_at, "recovery_ms": report.recovery_ms,
+                "rpc_errors": report.rpc_errors, "degraded_replies": report.degraded_replies,
+                "breaker_trips": report.breaker_trips, "shed_by_band": report.shed_by_band,
+                "builds_after_recovery": report.builds,
+                "demotions_after_recovery": report.retraces,
+                "traces_assembled": len(assembly.traces),
+                "client_orphan_spans": len(assembly.client_orphans),
+                "latency_ms": histogram_latency(report.registry),
+                "slo": [v.to_doc() for v in verdicts], "slo_pass": slo_mod.slos_pass(verdicts),
+                "checks": checks, "k2_vs_plain": tap.check(f"chaos {name}"), "wall_s": wall_s}
+
+    # (a) the reference's accelerator configuration, then its band storm
+    line["accelerator"] = replay("accelerator", CHAOS_ANCHOR_CFG["accelerator"],
+                                 CHAOS_ANCHOR_SHA256, (0,))
+    storm = overload_band_storm(device=dev)
+    if storm["shed_by_band"].get("koord-free", 0) == 0 or storm["shed_by_band"].get(
+            "koord-prod", 0) or storm["errors"]:
+        raise AssertionError(f"chaos: the band storm shed {storm['shed_by_band']}, "
+                             f"{storm['errors']} errors")
+    storm_verdicts = slo_mod.evaluate_slos(storm["registry"], [SloSpec(
+        name="prod-storm-score-p99", family=TRACE_CYCLE, quantile=0.99,
+        threshold_ms=2000.0, labels={"band": "koord-prod", "rpc": "score"})])
+    line["band_storm"] = {k: storm[k] for k in ("band_p99_ms", "served", "shed_client",
+                                                "shed_by_band", "errors", "max_inflight")}
+    line["band_storm"]["slo"] = [v.to_doc() for v in storm_verdicts]
+    line["gate_pass"] = line["accelerator"]["slo_pass"] and slo_mod.slos_pass(storm_verdicts)
+
+    # (b) the same gate at the headline cluster size, two K2 launches held
+    line["headline"] = replay("headline", CHAOS_HEADLINE_CFG, TRACE_HEADLINE_SHA256, (0, 1))
+
+    # (c) ChaosTier at the headline: two followers behind faulty channels
+    node_list, pod_list, gangs, quotas = lists
+    P, N = len(pod_list), len(node_list)
+    req, _ = build_sync_request(node_list, pod_list, gangs, quotas, node_bucket=N,
+                                pod_bucket=P)
+    msgs = [req] + sync_messages(req, CHAOS_TIER_DELTAS, seed=16)
+    tmp = tempfile.mkdtemp(prefix="kt")
+    t0 = time.perf_counter()
+    tier = ChaosTier(tmp, followers=2, plan=FaultPlan(**CHAOS_TIER_PLAN), seed=CHAOS_TIER_SEED,
+                     device=dev)
+    steps = {}
+    for step, msg in enumerate(msgs):
+        if step == CHAOS_TIER_STEPS["crash_restart"]:
+            before = tier.leader.snapshot_id()
+            tier.crash_leader()
+            stats = tier.restart_leader()
+            if stats["resumed_id"] != before or tier.leader.snapshot_id() != before:
+                raise AssertionError(f"chaos tier: the restart resumed {stats['resumed_id']}")
+            steps["restart"] = {"ms": stats["recovery_ms"], "replay_ms": stats["replay_ms"],
+                                "replayed_frames": stats["replayed_frames"]}
+        if step == CHAOS_TIER_STEPS["crash_damage_restart"]:
+            tier.crash_leader()
+            tier.damage_journal(cut_bytes=9)
+            stats = tier.restart_leader()
+            if not stats["truncated"]:
+                raise AssertionError("chaos tier: the torn tail was not truncated")
+            # the torn frame's Sync never became durable: the writer re-sends
+            # it to the recovered leader (the oracle applied it already)
+            tier.sync(msgs[step - 1], oracle=False)
+            steps["damaged_restart"] = {"ms": stats["recovery_ms"], "new_epoch":
+                                        tier.leader.snapshot_id()}
+        if step == CHAOS_TIER_STEPS["crash_promote"]:
+            tier.crash_leader()
+            t1 = time.perf_counter()
+            sid = tier.promote(0)
+            steps["promote"] = {"ms": (time.perf_counter() - t1) * 1e3, "snapshot_id": sid}
+        tier.sync(msg)
+        tier.converge()
+    sid = tier.leader.snapshot_id()
+    fired = {k: sum(f.channel.injected[k] for f in tier.followers) for k in CHAOS_TIER_PLAN}
+    score_bytes = len(flat_score_bytes(tier.leader, sid))
+    line["tier"] = {
+        "snapshot": f"quota_colocation {P} pods x {N} nodes, 16 tenants, seed 0",
+        "followers": 2, "plan": CHAOS_TIER_PLAN, "seed": CHAOS_TIER_SEED, "syncs": len(msgs),
+        "delta_recipe": "daemon_deltas, seed 16", "fault_steps": CHAOS_TIER_STEPS,
+        "steps": steps, "resyncs": tier.resyncs, "torn_checks": tier.torn_checks,
+        "stats": dict(tier.stats), "faults_fired": fired,
+        "flat_score_bytes_k8": score_bytes, "wall_s": time.perf_counter() - t0,
+        "parity": "every delivery: no torn snapshot; at each converge: mirrors and ids "
+                  "equal to the leader's, and leader and followers' flat Score bytes equal "
+                  "to the unfaulted oracle's",
+    }
+    if not all(fired.values()) or tier.resyncs < 3:
+        raise AssertionError(f"chaos tier: faults {fired}, {tier.resyncs} resyncs")
+    del tier
+    line["corrupt"] = corrupt_leg(dev, msgs[0], sync_messages(req, CHAOS_CORRUPT_FRAMES,
+                                                               seed=17))
+    torch.cuda.synchronize()
+    line["launches"] = kernel_counts()
+    return line, only_k2("chaos", line["launches"])
+
+
+def corrupt_leg(dev, full, deltas):
+    """One follower behind a channel that flips one byte of every frame
+    (``FaultPlan(corrupt=1.0)``): each delta frame is refused (its
+    follower state untouched, no torn snapshot, then the one-shot resync)
+    or applied; an applied frame either matches the leader's state (the
+    flip hit a byte the state does not hold, such as the stamp) or, with
+    the same snapshot id, diverges from it silently.  Counts each outcome;
+    the follower is resynced after every frame."""
+    import tempfile
+
+    from koordinator_tpu_torch.harness.chaos import ChaosTier, FaultPlan, state_digest
+
+    tier = ChaosTier(tempfile.mkdtemp(prefix="kx"), followers=1,
+                     plan=FaultPlan(corrupt=1.0), seed=0, device=dev)
+    tier.sync(full)
+    f = tier.followers[0]
+    tier._resync(f)
+    out = {"frames": len(deltas), "refused": 0, "applied_equal": 0,
+           "applied_diverged_same_id": 0}
+    for msg in deltas:
+        resyncs = tier.resyncs
+        sid = tier.sync(msg)
+        if tier.resyncs > resyncs or f.servicer.snapshot_id() != sid:
+            out["refused"] += 1
+        elif state_digest(f.servicer) == state_digest(tier.leader):
+            out["applied_equal"] += 1
+        else:
+            out["applied_diverged_same_id"] += 1
+        tier._resync(f)
+    out.update(torn_checks=tier.torn_checks, corrupted=f.channel.injected["corrupt"],
+               note="a replication frame carries no checksum (the reference's format); "
+                    "refused frames left no torn snapshot")
+    return out
+
+
+def tree_phase(card, dev, lists):
+    """The ``tree`` line (phase 17): the reference's ``--config tree`` at
+    the headline, a root leader with a depth-3 relay chain and one flat
+    follower, all real daemons in this process.  Returns (line, K2
+    launches)."""
+    import tempfile
+
+    import torch
+
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.harness.golden import build_sync_request
+    from koordinator_tpu_torch.harness.relay import RelayTier, autoscale_wave
+
+    node_list, pod_list, gangs, quotas = lists
+    P, N = len(pod_list), len(node_list)
+    req, _ = build_sync_request(node_list, pod_list, gangs, quotas, node_bucket=N,
+                                pod_bucket=P)
+    deltas = sync_messages(req, 15, seed=8)
+    line = {"snapshot": f"quota_colocation {P} pods x {N} nodes, 16 tenants, seed 0",
+            "shape": "RelayTier(chain=3, flat=1, compress=True, batch_bytes=64 KiB)",
+            "card": card}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix="kr")
+    tier = RelayTier(tmp, chain=3, flat=1, compress=True, batch_bytes=64 * 1024, device=dev)
+    exact = {}
+
+    def settle(name, sid):
+        t0 = time.perf_counter()
+        if not tier.wait(sid, timeout_s=600.0):
+            raise AssertionError(f"tree: {name}: the tier did not converge to {sid}")
+        return (time.perf_counter() - t0) * 1e3
+
+    def score(srv, sid):
+        reply = srv.servicer.score(wire.ScoreRequest(snapshot_id=sid, top_k=32, flat=True))
+        return reply.flat.SerializeToString()
+
+    try:
+        t0 = time.perf_counter()
+        sid = tier.sync(req)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        line["cold"] = {"root_sync_ms": sync_ms, "converge_ms": settle("cold", sid)}
+        t0 = time.perf_counter()
+        for msg in deltas[:10]:
+            sid = tier.sync(msg)
+        line["deltas"] = {"syncs": 10, "recipe": "daemon_deltas, seed 8",
+                          "root_sync_ms": (time.perf_counter() - t0) * 1e3,
+                          "converge_ms": settle("deltas", sid)}
+        leaf, flat = tier.chain[-1], tier.flat[0]
+        want = score(tier.leader, sid)
+        exact["score_bytes_root_leaf_flat"] = score(leaf, sid) == want == score(flat, sid)
+        # one Assign at the root and one at the leaf, each one K2 launch
+        root_a = tier.leader.servicer.assign(wire.AssignRequest(snapshot_id=sid))
+        leaf_a = leaf.servicer.assign(wire.AssignRequest(snapshot_id=sid))
+        exact["assign_root_vs_leaf"] = (
+            list(root_a.assignment) == list(leaf_a.assignment)
+            and list(root_a.status) == list(leaf_a.status)
+            and root_a.path == leaf_a.path == "cuda")
+        # an interior hop dies in the middle of a delta storm
+        victim = tier.chain[1]
+        opens0 = sum(s._publisher.subscriptions - s._publisher.resumed_subscriptions
+                     for s in [tier.leader] + tier.followers()
+                     if s is not victim and s._publisher is not None)
+        resyncs0 = sum(s.applier.resyncs for s in tier.followers() if s is not victim)
+        for msg in deltas[10:12]:
+            sid = tier.sync(msg)
+        tier.kill(1)
+        for msg in deltas[12:]:
+            sid = tier.sync(msg)
+        kill_ms = settle("the interior kill", sid)
+        line["interior_kill"] = {
+            "hop": 1, "deltas_before": 2, "deltas_after": 3, "converge_ms": kill_ms,
+            "full_opens": tier.full_opens() - opens0, "resyncs": tier.resyncs() - resyncs0,
+            "ancestor_switches": sum(s._subscriber.ancestor_switches
+                                     for s in tier.followers()),
+        }
+        exact["no_full_open_no_resync_through_the_kill"] = (
+            line["interior_kill"]["full_opens"] == 0 and line["interior_kill"]["resyncs"] == 0)
+        want = score(tier.leader, sid)
+        exact["score_bytes_after_the_kill"] = all(score(s, sid) == want
+                                                  for s in tier.followers())
+        # the autoscale wave, its spawn lever splicing real leaf daemons
+        t0 = time.perf_counter()
+        wave = autoscale_wave(ticks=48, peak=10.0, spawn=tier.spawn_leaf,
+                              drain=tier.drain_leaf)
+        wave_s = time.perf_counter() - t0
+        elastic_ms = settle("the elastic leaves", sid)
+        exact["elastic_leaves_score_bytes"] = all(score(s, sid) == want for s in tier.elastic)
+        line["autoscale"] = {
+            "ticks": wave["ticks"], "peak_load": wave["peak_load"],
+            "scale_ups": wave["scale_ups"], "scale_downs": wave["scale_downs"],
+            "peak_replicas": wave["peak_replicas"], "final_replicas": wave["final_replicas"],
+            "slo_p99_ms": wave["slo_p99_ms"], "slo_held": wave["slo_held"],
+            "plateau_ticks_judged": wave["plateau_ticks_judged"],
+            "plateau_ticks_within_slo": wave["plateau_ticks_within_slo"],
+            "spawn_to_ready_ms_all": wave["spawn_to_ready_ms_all"],
+            "elastic_leaves_live": len(tier.elastic), "elastic_converge_ms": elastic_ms,
+            "wall_s": wave_s,
+            "note": "read latency modeled by the harness (base_ms * load / replicas); the "
+                    "levers are real daemons",
+        }
+        if wave["scale_ups"] < 1:
+            raise AssertionError("tree: the autoscale wave never scaled up")
+        line["daemons_live"] = 1 + len(tier.followers())
+    finally:
+        tier.stop()
+    torch.cuda.synchronize()
+    line["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    line["peak_over_resident_bytes"] = line["peak_device_bytes"] - resident
+    line["exact"] = exact
+    failed = [k for k, ok in exact.items() if not ok]
+    if failed:
+        raise AssertionError(f"tree: {failed}")
+    line["launches"] = kernel_counts()
+    k2 = only_k2("tree", line["launches"])
+    if k2 != 2:
+        raise AssertionError(f"tree: {k2} K2 launches, want 2 (root and leaf Assign)")
+    return line, k2
+
+
+# the ``preempt`` line's reservation tick: reservation k lives
+# RSV_TTL_HOURS[k % 4] hours, and the controller's clock moves to
+# RSV_TICK_HOURS
+RSV_TTL_HOURS = (1, 2, 3, 4)
+RSV_TICK_HOURS = 2.5
+
+
+def preempt_phase(card, dev, extras_state):
+    """The ``preempt`` line (phase 18): the PostFilter over the pods the
+    extras cycle on K2 left unplaced, at the anchor and at the headline,
+    then a reservation expiry tick re-run through the extras cycle on K2.
+    Returns (line, K2 launches)."""
+    import torch
+
+    from koordinator_tpu_torch.harness.anchor import (
+        ANCHOR_RECIPE, PREEMPT_ANCHOR_SHA256,
+    )
+    from koordinator_tpu_torch.harness.extras_scenario import (
+        extended_plugins, extras_context, extras_snapshot, plugin_extra_tensors,
+        reservation_specs,
+    )
+    from koordinator_tpu_torch.harness.preempt import preempt_digest, preemption_inventory
+    from koordinator_tpu_torch.model.reservation import encode_reservations
+    from koordinator_tpu_torch.scheduler.framework import CycleContext, FrameworkExtender
+    from koordinator_tpu_torch.scheduler.reservation_controller import (
+        Reservation, ReservationController,
+    )
+    from koordinator_tpu_torch.solver import run_cycle
+
+    snap, tables, nodes, pods, result = extras_state
+    P, N = snap.pods.capacity, snap.nodes.capacity
+    line = {"snapshot": f"quota_colocation {P} pods x {N} nodes, seed 0, extras_scenario "
+                        "seed 0, the extras line's K2 placements", "card": card}
+    reset_counts()
+
+    def post_filter(s, res, node_list, pod_list):
+        ctx = CycleContext(snapshot=s)
+        t0 = time.perf_counter()
+        ctx.extras["preemption"] = preemption_inventory(s, res.assignment, res.quota_used,
+                                                        node_list, pod_list)
+        inv_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        found = FrameworkExtender().post_filter_preempt(ctx, res)
+        return ctx.extras["preemption"], found, inv_ms, (time.perf_counter() - t0) * 1e3
+
+    # the anchor: the PostFilter over the extras cycle on K2
+    snap_a, *tables_a, nodes_a, pods_a = extras_snapshot(**ANCHOR_RECIPE, device=dev)
+    m_a, s_a = plugin_extra_tensors(snap_a, *tables_a)
+    res_a = run_cycle(snap_a, extra_mask=m_a, extra_scores=s_a)
+    _, found_a, _, _ = post_filter(snap_a, res_a, nodes_a, pods_a)
+    if res_a.path != "cuda" or preempt_digest(found_a) != PREEMPT_ANCHOR_SHA256:
+        raise AssertionError(f"preempt anchor: digest {preempt_digest(found_a)}")
+    line["anchor"] = f"{ANCHOR_RECIPE}: {len(found_a)} pods find victims, digest matches"
+
+    # the headline
+    inv, found, inv_ms, pf_ms = post_filter(snap, result, nodes, pods)
+    unplaced = int((result.assignment < 0).sum())
+    if len(inv["pending_pods"]) != unplaced:
+        raise AssertionError(f"preempt: {len(inv['pending_pods'])} pending, {unplaced} unplaced")
+    line["post_filter"] = {
+        "unplaced_all_taken": unplaced, "inventory_ms": inv_ms, "post_filter_ms": pf_ms,
+        "nodes_evaluated_per_pod": len(inv["node_allocatable"]),
+        "pods_with_victims": len(found),
+        "victims": sum(len(nv.victims) for nv in found.values()),
+        "chosen_nodes": len({nv.node for nv in found.values()}),
+        "digest": preempt_digest(found),
+        "quota_runtime": "declared dimensions from the quota table, the rest unlimited",
+    }
+
+    # the reservation tick
+    zones, policy, devices, _ = tables
+    node_names = [n["name"] for n in nodes]
+    specs = {s["name"]: s for s in reservation_specs(node_names)}
+    now = [0.0]
+    ctl = ReservationController(clock=lambda: now[0])
+    for k, spec in enumerate(specs.values()):
+        ctl.create(Reservation(name=spec["name"], requests=dict(spec["allocatable"]),
+                               owners=spec["owners"],
+                               ttl_seconds=3600.0 * RSV_TTL_HOURS[k % len(RSV_TTL_HOURS)],
+                               allocate_policy=spec["allocate_policy"], creation_time=0.0))
+        ctl.on_reserve_pod_assigned(spec["name"], spec["node"], now=0.0)
+
+    def cycle():
+        # the controller owns the CR's spec and status; its labels and order
+        # are the CR's metadata, as the scenario declares them
+        rows = [dict(row, labels=specs[row["name"]]["labels"], order=specs[row["name"]]["order"])
+                for row in ctl.active_reservations()]
+        rsv = encode_reservations(rows, pods, node_names, pod_bucket=P, device=dev)
+        fx = FrameworkExtender(extended_plugins())
+        fx.register_error_handler(lambda ctx, p, exc: True)
+        t0 = time.perf_counter()
+        out = fx.run_cycle(extras_context(snap, zones, policy, devices, rsv))
+        torch.cuda.synchronize()
+        return out, len(rows), (time.perf_counter() - t0) * 1e3
+
+    before, rows_before, before_ms = cycle()
+    now[0] = RSV_TICK_HOURS * 3600.0
+    t0 = time.perf_counter()
+    ctl.sync_all()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    expired = sum(1 for r in ctl.reservations.values() if r.is_expired())
+    with K2Tap([0]) as tap:
+        after, rows_after, after_ms = cycle()
+    if before.path != "cuda" or after.path != "cuda" or rows_after != rows_before - expired:
+        raise AssertionError(f"preempt: paths {before.path}/{after.path}, rows "
+                             f"{rows_before} -> {rows_after}, {expired} expired")
+    line["reservation_tick"] = {
+        "reservations": len(specs), "ttl_hours": RSV_TTL_HOURS, "tick_hours": RSV_TICK_HOURS,
+        "expired": expired, "active_before": rows_before, "active_after": rows_after,
+        "tick_ms": tick_ms, "cycle_before_ms": before_ms, "cycle_after_ms": after_ms,
+        "placed_before": int((before.assignment >= 0).sum()),
+        "placed_after": int((after.assignment >= 0).sum()),
+        "placements_moved": int((before.assignment != after.assignment).sum()),
+        "k2_vs_plain": tap.check("preempt tick"),
+        "cycle": "FrameworkExtender([NodeNUMAResource, Reservation, DeviceShare]).run_cycle "
+                 "on the re-encoded active_reservations(), hooks included",
+    }
+    if not expired:
+        raise AssertionError("preempt: the tick expired no reservation")
+    torch.cuda.synchronize()
+    line["launches"] = kernel_counts()
+    return line, only_k2("preempt", line["launches"])
 
 
 def main() -> int:
@@ -2689,7 +3228,7 @@ def main() -> int:
     phase_done("12_trace")
 
     # phase 13: the extended-plugin cycle
-    extras_line, extras_launches = extras_phase(card, dev, counted, only)
+    extras_line, extras_launches, extras_state = extras_phase(card, dev, counted, only)
     print(json.dumps({"extras": extras_line}))
     phase_done("13_extras")
 
@@ -2704,30 +3243,48 @@ def main() -> int:
     print(json.dumps({"daemon": daemon_line}))
     phase_done("15_daemon")
 
+    # phase 16: the chaos x trace gate and ChaosTier
+    chaos_line, k2_chaos = chaos_phase(card, dev, cluster_lists)
+    print(json.dumps({"chaos": chaos_line}))
+    phase_done("16_chaos")
+
+    # phase 17: the relay tree
+    tree_line, k2_tree = tree_phase(card, dev, cluster_lists)
+    print(json.dumps({"tree": tree_line}))
+    phase_done("17_tree")
+
+    # phase 18: the PostFilter and the reservation tick
+    preempt_line, k2_preempt = preempt_phase(card, dev, extras_state)
+    print(json.dumps({"preempt": preempt_line}))
+    phase_done("18_preempt")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
+    # each kernel's launches on every line that drives a path
+    lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt")
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
-         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches, 0,
-         extras_launches["K1"], 0, 0, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by),
+         "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
+         (0, extras_launches["K1"], 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
+         k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches, k2_trace_launches,
-         extras_launches["K2"], k2_rebalance, k2_daemon, k2_err, k2_ms, k2_plain_ms,
-         k2_bound, k2_bound_by),
+         "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
+         (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
+          k2_tree, k2_preempt), k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, 0, 0, 0, 0, k3_err,
-         k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0),
+         k3_err, k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "trace_launches": trace_launches,
-        "extras_launches": extras_n, "rebalance_launches": rebalance_n,
-        "daemon_launches": daemon_n, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "launches": launches,
+        **{f"{ln}_launches": n for ln, n in zip(lines, per_line)},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
         # no PyTorch call computes a sequential greedy assignment
         "library_ms": None, "parity": "exact",
-    } for name, source, replaces, launches, trace_launches, extras_n, rebalance_n, daemon_n,
-        err, ms, plain_ms, bound_ms, bound_by in entries]}))
+    } for name, source, replaces, launches, per_line, err, ms, plain_ms, bound_ms, bound_by
+        in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -136,6 +136,7 @@ class RawUdsServer:
     def stop(self) -> None:
         self._stop.set()
         try:
+            self._wake_accept_loop()
             self._sock.close()
         finally:
             with self._conns_lock:
@@ -151,8 +152,25 @@ class RawUdsServer:
                     pass
             if os.path.exists(self.path):
                 os.unlink(self.path)
+            if (self._thread.is_alive()
+                    and self._thread is not threading.current_thread()):
+                self._thread.join(timeout=5.0)
 
     # -- internals --
+    def _wake_accept_loop(self) -> None:
+        """Connect once to the listening socket, so a thread blocked in
+        ``accept()`` returns, sees the stop and ends, letting go of the
+        servicer: neither closing a listening socket nor shutting it down
+        wakes ``accept()`` on every kernel."""
+        if not self._thread.is_alive():
+            return
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as poke:
+                poke.settimeout(1.0)
+                poke.connect(self.path)
+        except OSError:
+            pass
+
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
             try:

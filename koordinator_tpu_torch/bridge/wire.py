@@ -88,6 +88,9 @@ def split_fields(b: bytes) -> List[Tuple[int, int, object]]:
     while i < len(b):
         key, i = read_varint(b, i)
         field, wtype = key >> 3, key & 7
+        if field == 0:
+            # protobuf reserves field number 0: its runtime refuses it
+            raise ValueError("invalid field number 0")
         if wtype == VARINT:
             v, i = read_varint(b, i)
             out.append((field, wtype, v))

@@ -72,6 +72,23 @@ TRACE_HEADLINE_CFG = {"seed": 0, "nodes": 2000, "pod_slots": 10000, "tenants": 8
                       "gangs": 12, "gang_min_member": 4, "events": 24}
 TRACE_HEADLINE_SHA256 = "6e0d1ff7915984935e02b76caff37cb8a04e7f8b070b65d11dd0876bd2584864"
 
+# The chaos x trace gate (``chip_smoke.py``'s ``chaos`` line): the
+# reference's ``--config chaos-trace`` trace on an accelerator
+# (``bench.py:1584-1607``) and, under ``"on_cpu"``, on the CPU; the fault
+# schedule of both is fail at a quarter of the events, kill at two thirds.
+# ``CHAOS_ANCHOR_SHA256`` is the reference's digest of the accelerator
+# trace; ``tests/test_torch_chaos.py`` recomputes it from the JAX package.
+# ``CHAOS_HEADLINE_CFG`` is the gate at the headline cluster size
+# (``TRACE_HEADLINE_CFG``: fail at 6, kill at 16).
+CHAOS_ANCHOR_CFG = {
+    "accelerator": {"seed": 0, "nodes": 128, "pod_slots": 512, "tenants": 6,
+                    "gangs": 6, "gang_min_member": 4, "events": 48},
+    "on_cpu": {"seed": 0, "nodes": 32, "pod_slots": 96, "tenants": 4,
+               "gangs": 6, "gang_min_member": 4, "events": 24},
+}
+CHAOS_ANCHOR_SHA256 = "dc5875ca729e5401f54a68cfc18abbf98db66f212ff17ea7f5e02bb3c2b26832"
+CHAOS_HEADLINE_CFG = TRACE_HEADLINE_CFG
+
 
 # The extended-plugin cycle (``chip_smoke.py``'s ``extras`` line) at
 # ``ANCHOR_RECIPE``, the extras scenario at seed 0
@@ -86,6 +103,14 @@ TRACE_HEADLINE_SHA256 = "6e0d1ff7915984935e02b76caff37cb8a04e7f8b070b65d11dd0876
 EXTRAS_TENSORS_SHA256 = "b3123fec556087fa1a738fc1b94091a1452f1cce361dc9611d5b26e2b4f7edc0"
 EXTRAS_ANCHOR_SHA256 = "1d5fbb3c41583acee8689263878a3558ce0452ea52d978df116ba20d66fd08b4"
 REBALANCE_ANCHOR_SHA256 = "406100f80221231a9bcc0d188c71b97021f7f06a17e77489c7270b118ceb47ed"
+
+# The PostFilter (``chip_smoke.py``'s ``preempt`` line) at ``ANCHOR_RECIPE``:
+# the digest (``harness/preempt.py preempt_digest``) of the reference's
+# ``FrameworkExtender.post_filter_preempt`` over every pod its extras cycle
+# (the ``EXTRAS_ANCHOR_SHA256`` placements) left unplaced, on the
+# inventory ``preemption_inventory`` builds from that cycle.
+# ``tests/test_torch_extras.py`` recomputes it from the JAX package.
+PREEMPT_ANCHOR_SHA256 = "4c48ca3f5ebf170aa868d7a5bc6c48b7a5f81139dfbeec15efa59fd06efb796f"
 
 
 def extras_digest(mask, scores) -> str:

@@ -201,24 +201,9 @@ def extras_scenario(
 
     # reservations match pods by owner label selector (the reference's
     # MatchReservationOwners label path); tag every 8th pod round-robin
-    rsv_specs = []
     node_names = [nd["name"] for nd in nodes_out]
-    n_rsv = max(1, len(range(0, N, 16)))
-    for k, i in enumerate(range(0, N, 16)):
-        rsv_specs.append(
-            {
-                "name": f"rsv-{k}",
-                "node": node_names[i],
-                "allocatable": {"cpu": "4000m", "memory": 8 * Gi},
-                "allocated": {"cpu": "1000m", "memory": 2 * Gi},
-                "allocate_policy": "Aligned" if i % 32 else "Default",
-                "order": (k + 1) if i % 48 == 0 else 0,
-                "owners": [{"label_selector": {"rsv-owner": f"rsv-{k}"}}],
-                "labels": {
-                    "reservation-type": "gold" if k % 2 == 0 else "general"
-                },
-            }
-        )
+    rsv_specs = reservation_specs(node_names)
+    n_rsv = len(rsv_specs)
     for p, pod in enumerate(pods_out):
         if p % 8 == 0:
             labels = dict(pod.get("labels", {}))
@@ -237,6 +222,31 @@ def extras_scenario(
         rsv_specs, pods_out, node_names, pod_bucket=pod_bucket, device=device
     )
     return zbatch, policy, dbatch, rsv, nodes_out, pods_out
+
+
+def reservation_specs(node_names):
+    """The scenario's reservation dicts (``encode_reservations`` rows): one
+    on every 16th node, ``rsv-<k>``, 4 cpu and 8 Gi with 1 cpu and 2 Gi
+    allocated, Aligned unless the node index is a multiple of 32, an order
+    on every 48th node, owned by the pods labelled ``rsv-owner: rsv-<k>``,
+    and labelled gold on even ``k``, general on odd."""
+    specs = []
+    for k, i in enumerate(range(0, len(node_names), 16)):
+        specs.append(
+            {
+                "name": f"rsv-{k}",
+                "node": node_names[i],
+                "allocatable": {"cpu": "4000m", "memory": 8 * Gi},
+                "allocated": {"cpu": "1000m", "memory": 2 * Gi},
+                "allocate_policy": "Aligned" if i % 32 else "Default",
+                "order": (k + 1) if i % 48 == 0 else 0,
+                "owners": [{"label_selector": {"rsv-owner": f"rsv-{k}"}}],
+                "labels": {
+                    "reservation-type": "gold" if k % 2 == 0 else "general"
+                },
+            }
+        )
+    return specs
 
 
 def extras_snapshot(seed: int = 0, pods: int = 10000, nodes: int = 2000,

@@ -216,14 +216,46 @@ class FrameworkExtender:
     def post_filter_preempt(
         self, ctx: CycleContext, result: CycleResult
     ) -> Dict[str, object]:
-        """PostFilter quota preemption (reference elasticquota/preempt.go).
-        It needs ``constraints/quota_enforce.py`` and
-        ``constraints/quota_manager.py``, which are not ported yet
-        (ROADMAP Queue A item 15)."""
-        raise NotImplementedError(
-            "post_filter_preempt needs constraints/quota_enforce.py and "
-            "quota_manager.py, not ported yet (ROADMAP Queue A item 15)"
+        """PostFilter: quota preemption dry run for unschedulable pods
+        (reference elasticquota/preempt.go via the upstream preemption
+        framework).  Requires ctx.extras["preemption"] = {
+          "node_allocatable": {node: dense vec},
+          "node_pods": {node: [pod dicts]},
+          "quota_runtime": {quota: vec}, "quota_used": {quota: vec},
+          "pending_pods": [pod dicts] (each with "quota")}.
+        Returns {pod_name: NodeVictims} for pods that can preempt.  The
+        cycle's placements are read from the device once."""
+        from koordinator_tpu_torch.constraints.quota_enforce import (
+            run_quota_preemption,
         )
+        from koordinator_tpu_torch.constraints.quota_manager import DEFAULT_QUOTA
+        from koordinator_tpu_torch.model import resources as res
+
+        inv = ctx.extras.get("preemption")
+        if not inv:
+            return {}
+        out: Dict[str, object] = {}
+        assignment = result.assignment.cpu().numpy()
+        for pod in inv.get("pending_pods", ()):
+            # a pod holding ANY placement (assigned or gang-WAITing with
+            # resources reserved) never preempts; only truly unplaced pods
+            # do.  Pods without a cycle index are treated as never placed.
+            idx = pod.get("index")
+            if idx is not None and idx < len(assignment) and assignment[idx] >= 0:
+                continue
+            quota = pod.get("quota") or DEFAULT_QUOTA  # match can_preempt
+            nv = run_quota_preemption(
+                pod,
+                inv["node_allocatable"],
+                inv["node_pods"],
+                inv.get("quota_used", {}).get(quota, [0] * res.NUM_RESOURCES),
+                inv.get("quota_runtime", {}).get(
+                    quota, [1 << 60] * res.NUM_RESOURCES
+                ),
+            )
+            if nv is not None:
+                out[pod["name"]] = nv
+        return out
 
     def run_score_only(self, ctx: CycleContext):
         """Score-only mode for strict plugin parity checks (the reference

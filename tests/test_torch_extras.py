@@ -57,8 +57,14 @@ from koordinator_tpu_torch.harness.anchor import (
     ANCHOR_RECIPE,
     EXTRAS_ANCHOR_SHA256,
     EXTRAS_TENSORS_SHA256,
+    PREEMPT_ANCHOR_SHA256,
     cycle_digest,
     extras_digest,
+)
+from koordinator_tpu_torch.harness.preempt import (
+    preempt_digest,
+    preempt_doc,
+    preemption_inventory,
 )
 from koordinator_tpu_torch.model import device as tdevice
 from koordinator_tpu_torch.model import reservation as trsv
@@ -755,13 +761,30 @@ def test_hooks_read_back_once_a_cycle(scenario, monkeypatch):
     assert again == patches and [n for n, _ in calls[3:]] == names
 
 
-def test_post_filter_preempt_names_its_item(scenario):
-    _, _, tsnap, ttab, _, _ = scenario
-    fx = tfw.FrameworkExtender(_plugins(tpl))
-    ctx = _context(tfw, tsnap, ttab)
-    ctx.extras["preemption"] = {"pending_pods": [{"name": "p", "quota": "q"}]}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fx.post_filter_preempt(ctx, None)
+def post_filter(fw, snap, result, nodes, pods):
+    """``fw``'s PostFilter over every pod ``result`` left unplaced, on the
+    inventory of ``result``'s placements."""
+    ctx = fw.CycleContext(snapshot=snap)
+    ctx.extras["preemption"] = preemption_inventory(snap, result.assignment,
+                                                    result.quota_used, nodes, pods)
+    return ctx, fw.FrameworkExtender().post_filter_preempt(ctx, result)
+
+
+def test_post_filter_preempt_matches_the_reference(scenario):
+    """Both packages' PostFilter on the extras scenario's cycle (the
+    plugins' extras, the hooks run) propose the same victims for the same
+    pods: node, victim names and PDB violations."""
+    jsnap, jtab, tsnap, ttab, nodes, pods = scenario
+    jr, *_ = run_framework(jfw, jpl, jtopo, jsnap, jtab, nodes, pol=jnp.asarray(jtab[1]))
+    tr, *_ = run_framework(tfw, tpl, ttopo, tsnap, ttab, nodes)
+    same(jr.assignment, tr.assignment)
+    jctx, want = post_filter(jfw, jsnap, jr, nodes, pods)
+    tctx, got = post_filter(tfw, tsnap, tr, nodes, pods)
+    assert jctx.extras["preemption"] == tctx.extras["preemption"]
+    assert preempt_doc(got) == preempt_doc(want)
+    # the leg is load-bearing: unplaced pods, and some of them find victims
+    assert tctx.extras["preemption"]["pending_pods"] and got
+    assert all(nv.victims for nv in got.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1037,6 +1060,23 @@ def test_port_meets_the_extras_anchors(anchor):
     # the cycle's count-based device fit reads the table before the cycle:
     # some GPU pods find no free minor at Reserve, in the reference too
     assert failures
+
+
+def test_preempt_anchor_from_the_reference(anchor):
+    """The PostFilter over the reference's extras cycle at the anchor."""
+    jsnap, jtab, (_, _, _, _, _, nodes, pods) = anchor
+    jm, js = jx.plugin_extra_tensors(jsnap, *jtab)
+    res_j = j_greedy_assign(jsnap, extra_mask=jm, extra_scores=js)
+    _, found = post_filter(jfw, jsnap, res_j, nodes, pods)
+    assert found and preempt_digest(found) == PREEMPT_ANCHOR_SHA256
+
+
+def test_port_meets_the_preempt_anchor(anchor):
+    _, _, (snap, z, pol, d, r, nodes, pods) = anchor
+    m, s = tx.plugin_extra_tensors(snap, z, pol, d, r)
+    result = tsolver.run_cycle(snap, extra_mask=m, extra_scores=s)
+    _, found = post_filter(tfw, snap, result, nodes, pods)
+    assert preempt_digest(found) == PREEMPT_ANCHOR_SHA256
 
 
 _ISOLATED = r"""

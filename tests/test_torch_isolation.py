@@ -1,8 +1,9 @@
 """The PyTorch port runs where JAX is absent: it imports neither ``jax`` nor
 the JAX package nor the protobuf runtime, imports ``grpc`` only inside the
 two functions that build gRPC transports (the server's and the client's)
-and ``yaml`` only inside ``load_config``, serves and replays a trace over
-the raw framing with all three blocked, runs the daemon tier (a leader
+and ``yaml`` only inside ``load_config``, serves and replays a trace (and
+a chaos replay with a leader kill) over the raw framing with all three
+blocked, runs the daemon tier (a leader
 and a follower) with ``yaml`` blocked too, and ``chip_smoke.py`` refuses
 to run without a CUDA card or without the port beside it."""
 
@@ -150,10 +151,18 @@ from koordinator_tpu_torch.harness.trace import TraceConfig, TraceReplay, genera
 trace = generate_trace(TraceConfig(seed=7, nodes=8, pod_slots=48, tenants=2, gangs=4,
                                    gang_min_member=4, events=14))
 report = TraceReplay(trace, device="cpu", transport="raw").run()
+import tempfile
+from koordinator_tpu_torch.harness.chaos import ChaosTraceReplay
+with tempfile.TemporaryDirectory() as td:
+    chaos = ChaosTraceReplay(trace, td, fail_at=3, fail_n=4, kill_at=9, device="cpu").run()
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "grpc", "koordinator_tpu") or m.startswith("google.protobuf")))
 print(json.dumps({"events": report.events_replayed, "parity": report.parity_checks,
-                  "retraces": report.retraces, "builds": report.builds, "loaded": loaded}))
+                  "retraces": report.retraces, "builds": report.builds, "loaded": loaded,
+                  "chaos": {"parity_ok": chaos.parity_ok, "retraces": chaos.retraces,
+                            "builds": chaos.builds, "recovered": chaos.recovery_ms is not None,
+                            "tripped": chaos.breaker_trips > 0,
+                            "collected": chaos.dead_leader_collected}}))
 """
 
 
@@ -164,7 +173,9 @@ def test_trace_replay_runs_over_raw_with_jax_grpc_and_protobuf_blocked():
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"events": 14, "parity": 15, "retraces": 0, "builds": 0, "loaded": []}
+    assert got == {"events": 14, "parity": 15, "retraces": 0, "builds": 0, "loaded": [],
+                   "chaos": {"parity_ok": True, "retraces": 0, "builds": 0, "recovered": True,
+                             "tripped": True, "collected": True}}
 
 
 _ISOLATED = r"""

@@ -265,6 +265,17 @@ def test_malformed_fields_rejected(raw, match):
         wire.SyncRequest.FromString(raw)
 
 
+@pytest.mark.parametrize("raw", [b"\x00\x00", b"\x02\x00", b"\x0a\x02\x00\x00"])
+def test_field_number_zero_rejected_as_the_runtime_rejects_it(raw):
+    """Field number 0 is reserved: the protobuf runtime refuses a message
+    holding one, at any depth, and so does the codec (a flipped byte of a
+    replication frame can make one)."""
+    with pytest.raises(Exception):
+        pb2.SyncRequest.FromString(raw)
+    with pytest.raises(ValueError, match="field number 0"):
+        wire.SyncRequest.FromString(raw)
+
+
 def test_varint_overflow_rejected():
     with pytest.raises(ValueError, match="varint overflow"):
         wire.read_varint(b"\xff" * 11, 0)
