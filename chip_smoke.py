@@ -181,7 +181,18 @@ Phases (any failure raises and exits non-zero, printing no result):
     re-run on K2 (held against the plain version): expired count and the
     placements that moved.  ``chaos_launches``, ``tree_launches`` and
     ``preempt_launches`` on the ``kernels`` line count each line's
-    launches.
+    launches;
+19. (run before phase 10's lines) ``lint``: koordlint over the checked-out
+    port and this script (``python -m koordinator_tpu_torch.analysis``):
+    the rules run and files scanned, no finding (by rule), the live and
+    stale suppression tags, the derived lock graph's locks and edges, the
+    pass's seconds; then the ``chaos`` line's accelerator replay once more
+    with the runtime lock witness armed (``lockwitness.install()``, which
+    loads the derived order): no inversion, the observed edges and those
+    the static order lacks, parity with the serial oracle, its K2 launch
+    at the cold step held against ``cycle_wide_reference``, and its wall
+    over the unwitnessed replay's (``lint_launches`` on the ``kernels``
+    line).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -2459,11 +2470,68 @@ CHAOS_TIER_DELTAS = 16
 CHAOS_TIER_STEPS = {"crash_restart": 4, "crash_damage_restart": 8, "crash_promote": 12}
 
 
+def chaos_replay(dev, name, cfg, want_digest, tap_steps):
+    """One ChaosTraceReplay over the raw framing: the reference bench's
+    checks, then its numbers; the engine's K2 launches at ``tap_steps`` of
+    the chaos pass (0 = its cold step) held against the plain version."""
+    import os
+    import tempfile
+
+    from koordinator_tpu_torch.harness.chaos import ChaosTraceReplay, chaos_trace_slo_specs
+    from koordinator_tpu_torch.harness.trace import TraceConfig, generate_trace
+    from koordinator_tpu_torch.obs import slo as slo_mod
+    from koordinator_tpu_torch.obs.assemble import assemble
+
+    trace = generate_trace(TraceConfig(**cfg))
+    if trace.digest() != want_digest:
+        raise AssertionError(f"chaos {name}: trace digest {trace.digest()}")
+    events = len(trace.events)
+    fail_at, kill_at = chaos_schedule(events)
+    tmp = tempfile.mkdtemp(prefix="kc")
+    export = os.path.join(tmp, "spans")
+    # the warm-up pass: one engine and one oracle Assign a step; the
+    # chaos pass then opens with the engine's and the oracle's cold
+    # Assigns, and each event's engine Assign follows
+    first = 2 * (events + 1)
+    keep = [first + (0 if s == 0 else s + 1) for s in tap_steps]
+    t0 = time.perf_counter()
+    with K2Tap(keep) as tap:
+        report = ChaosTraceReplay(trace, tmp, fail_at=fail_at, fail_n=4, kill_at=kill_at,
+                                  trace_export=export, device=dev).run()
+    wall_s = time.perf_counter() - t0
+    assembly = assemble([export])
+    checks = {
+        "parity_ok": report.parity_ok,
+        "no_build_after_recovery": report.builds == 0,
+        "no_demotion_after_recovery": report.retraces == 0,
+        "recovery_measured": report.recovery_ms is not None,
+        "breaker_tripped": report.breaker_trips > 0,
+        "degraded_replies": report.degraded_replies > 0,
+        "traces_assembled": len(assembly.traces) > 0,
+        "no_client_orphan_span": not assembly.client_orphans,
+        "dead_leader_collected": report.dead_leader_collected is True,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"chaos {name}: {failed} ({report.parity_detail})")
+    verdicts = slo_mod.evaluate_slos(report.registry, chaos_trace_slo_specs(report.bands))
+    return {**cfg, "digest": trace.digest(), "fail_at": fail_at, "fail_n": 4,
+            "kill_at": kill_at, "recovery_ms": report.recovery_ms,
+            "rpc_errors": report.rpc_errors, "degraded_replies": report.degraded_replies,
+            "breaker_trips": report.breaker_trips, "shed_by_band": report.shed_by_band,
+            "builds_after_recovery": report.builds,
+            "demotions_after_recovery": report.retraces,
+            "traces_assembled": len(assembly.traces),
+            "client_orphan_spans": len(assembly.client_orphans),
+            "latency_ms": histogram_latency(report.registry),
+            "slo": [v.to_doc() for v in verdicts], "slo_pass": slo_mod.slos_pass(verdicts),
+            "checks": checks, "k2_vs_plain": tap.check(f"chaos {name}"), "wall_s": wall_s}
+
+
 def chaos_phase(card, dev, lists):
     """The ``chaos`` line (phase 16): the chaos x trace gate over the raw
     framing at the reference's accelerator size and at the headline, then
     ``ChaosTier`` at the headline.  Returns (line, K2 launches)."""
-    import os
     import tempfile
 
     import torch
@@ -2472,71 +2540,19 @@ def chaos_phase(card, dev, lists):
         CHAOS_ANCHOR_CFG, CHAOS_ANCHOR_SHA256, CHAOS_HEADLINE_CFG, TRACE_HEADLINE_SHA256,
     )
     from koordinator_tpu_torch.harness.chaos import (
-        ChaosTier, ChaosTraceReplay, FaultPlan, chaos_trace_slo_specs, flat_score_bytes,
-        overload_band_storm,
+        ChaosTier, FaultPlan, flat_score_bytes, overload_band_storm,
     )
     from koordinator_tpu_torch.harness.golden import build_sync_request
-    from koordinator_tpu_torch.harness.trace import TraceConfig, generate_trace
     from koordinator_tpu_torch.obs import slo as slo_mod
-    from koordinator_tpu_torch.obs.assemble import assemble
     from koordinator_tpu_torch.obs.scorer_metrics import TRACE_CYCLE
     from koordinator_tpu_torch.obs.slo import SloSpec
 
     line = {"card": card, "transport": "raw UDS through ScorerClient('raw://...')"}
     reset_counts()
 
-    def replay(name, cfg, want_digest, tap_steps):
-        """One ChaosTraceReplay: the reference bench's checks, then its
-        numbers; the engine's K2 launches at ``tap_steps`` of the chaos
-        pass (0 = its cold step) held against the plain version."""
-        trace = generate_trace(TraceConfig(**cfg))
-        if trace.digest() != want_digest:
-            raise AssertionError(f"chaos {name}: trace digest {trace.digest()}")
-        events = len(trace.events)
-        fail_at, kill_at = chaos_schedule(events)
-        tmp = tempfile.mkdtemp(prefix="kc")
-        export = os.path.join(tmp, "spans")
-        # the warm-up pass: one engine and one oracle Assign a step; the
-        # chaos pass then opens with the engine's and the oracle's cold
-        # Assigns, and each event's engine Assign follows
-        first = 2 * (events + 1)
-        keep = [first + (0 if s == 0 else s + 1) for s in tap_steps]
-        t0 = time.perf_counter()
-        with K2Tap(keep) as tap:
-            report = ChaosTraceReplay(trace, tmp, fail_at=fail_at, fail_n=4, kill_at=kill_at,
-                                      trace_export=export, device=dev).run()
-        wall_s = time.perf_counter() - t0
-        assembly = assemble([export])
-        checks = {
-            "parity_ok": report.parity_ok,
-            "no_build_after_recovery": report.builds == 0,
-            "no_demotion_after_recovery": report.retraces == 0,
-            "recovery_measured": report.recovery_ms is not None,
-            "breaker_tripped": report.breaker_trips > 0,
-            "degraded_replies": report.degraded_replies > 0,
-            "traces_assembled": len(assembly.traces) > 0,
-            "no_client_orphan_span": not assembly.client_orphans,
-            "dead_leader_collected": report.dead_leader_collected is True,
-        }
-        failed = [k for k, ok in checks.items() if not ok]
-        if failed:
-            raise AssertionError(f"chaos {name}: {failed} ({report.parity_detail})")
-        verdicts = slo_mod.evaluate_slos(report.registry, chaos_trace_slo_specs(report.bands))
-        return {**cfg, "digest": trace.digest(), "fail_at": fail_at, "fail_n": 4,
-                "kill_at": kill_at, "recovery_ms": report.recovery_ms,
-                "rpc_errors": report.rpc_errors, "degraded_replies": report.degraded_replies,
-                "breaker_trips": report.breaker_trips, "shed_by_band": report.shed_by_band,
-                "builds_after_recovery": report.builds,
-                "demotions_after_recovery": report.retraces,
-                "traces_assembled": len(assembly.traces),
-                "client_orphan_spans": len(assembly.client_orphans),
-                "latency_ms": histogram_latency(report.registry),
-                "slo": [v.to_doc() for v in verdicts], "slo_pass": slo_mod.slos_pass(verdicts),
-                "checks": checks, "k2_vs_plain": tap.check(f"chaos {name}"), "wall_s": wall_s}
-
     # (a) the reference's accelerator configuration, then its band storm
-    line["accelerator"] = replay("accelerator", CHAOS_ANCHOR_CFG["accelerator"],
-                                 CHAOS_ANCHOR_SHA256, (0,))
+    line["accelerator"] = chaos_replay(dev, "accelerator", CHAOS_ANCHOR_CFG["accelerator"],
+                                       CHAOS_ANCHOR_SHA256, (0,))
     storm = overload_band_storm(device=dev)
     if storm["shed_by_band"].get("koord-free", 0) == 0 or storm["shed_by_band"].get(
             "koord-prod", 0) or storm["errors"]:
@@ -2551,7 +2567,8 @@ def chaos_phase(card, dev, lists):
     line["gate_pass"] = line["accelerator"]["slo_pass"] and slo_mod.slos_pass(storm_verdicts)
 
     # (b) the same gate at the headline cluster size, two K2 launches held
-    line["headline"] = replay("headline", CHAOS_HEADLINE_CFG, TRACE_HEADLINE_SHA256, (0, 1))
+    line["headline"] = chaos_replay(dev, "headline", CHAOS_HEADLINE_CFG, TRACE_HEADLINE_SHA256,
+                                    (0, 1))
 
     # (c) ChaosTier at the headline: two followers behind faulty channels
     node_list, pod_list, gangs, quotas = lists
@@ -2894,6 +2911,88 @@ def preempt_phase(card, dev, extras_state):
     torch.cuda.synchronize()
     line["launches"] = kernel_counts()
     return line, only_k2("preempt", line["launches"])
+
+
+def lint_phase(card, dev, unwitnessed):
+    """The ``lint`` line (phase 19): (a) koordlint over the checked-out port
+    and this script (``koordinator_tpu_torch/analysis``): every rule, no
+    finding, the suppression audit clean, the derived lock graph; (b) the
+    witness leg: the ``chaos`` line's first replay (the reference's
+    accelerator trace) once more, with ``lockwitness.install()`` armed on
+    the port's derived order: no inversion, the observed edges (those the
+    static order lacks named), parity with the serial oracle, one K2 launch
+    held against its plain version, and its wall over ``unwitnessed``, the
+    ``chaos`` line's wall for the same replay.  Returns (line, K2
+    launches)."""
+    import os
+
+    import torch
+
+    from koordinator_tpu_torch.analysis import RULES, lockgraph, suppressions
+    from koordinator_tpu_torch.analysis.core import scanned_files
+    from koordinator_tpu_torch.harness.anchor import CHAOS_ANCHOR_CFG, CHAOS_ANCHOR_SHA256
+    from koordinator_tpu_torch.obs import lockwitness
+
+    # (a) the static pass over the tree this script runs from
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lint = suppressions.lint_pass(root)
+    static_s = time.perf_counter() - t0
+    findings, tags, graph = lint.findings, lint.tags, lint.graph
+    if findings or lint.problems:
+        raise AssertionError("lint: " + "; ".join(
+            v.format() for v in findings + lint.problems))
+    live = {}
+    for tag in tags:
+        live[tag.rule] = live.get(tag.rule, 0) + 1
+    line = {"card": card, "static": {
+        "rules": list(RULES), "files": len(scanned_files(root)), "findings": 0,
+        "findings_by_rule": {rule: sum(v.rule == rule for v in findings) for rule in RULES},
+        "live_tags": len(tags), "live_tags_by_rule": live, "stale_tags": 0,
+        "tags_without_reason": 0, "locks": len(graph.locks), "edges": len(graph.edges),
+        "cycles": len(lockgraph.find_cycles(graph)), "seconds": static_s,
+        "note": "suppressions.lint_pass: one unsuppressed pass over the tree and one "
+                "lock graph give the findings, the tags and the audit",
+    }}
+
+    # (b) the witness leg: the locks a replay creates are witnessed, so the
+    # witness is armed before the replay builds its daemons
+    reset_counts()
+    t0 = time.perf_counter()
+    lockwitness.install()
+    install_s = time.perf_counter() - t0
+    try:
+        static = {(a, b) for a, bs in lockwitness._STATE.static_order.items() for b in bs}
+        if static != set(graph.edges):
+            raise AssertionError("lint: install() did not arm the derived order")
+        replay = chaos_replay(dev, "witnessed", CHAOS_ANCHOR_CFG["accelerator"],
+                              CHAOS_ANCHOR_SHA256, (0,))
+        observed = lockwitness.observed_edges()
+        inversions = lockwitness.inversions()
+    finally:
+        lockwitness.uninstall()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if inversions or not observed:
+        raise AssertionError(f"lint: witness saw {len(observed)} edges, "
+                             f"inversions {inversions}")
+    lacking = sorted(e for e in observed if e not in static)
+    line["witness"] = {
+        "replay": "chaos accelerator (CHAOS_ANCHOR_CFG): "
+                  f"{replay['nodes']} nodes x {replay['pod_slots']} pod slots, "
+                  f"{replay['events']} events, poison at {replay['fail_at']}, "
+                  f"kill at {replay['kill_at']}",
+        "order_edges": len(static), "install_s": install_s, "inversions": 0,
+        "observed_edges": len(observed),
+        "acquisitions_on_observed_edges": sum(observed.values()),
+        "observed_not_in_static_order": [
+            {"first": a, "then": b, "count": observed[(a, b)]} for a, b in lacking],
+        "parity_ok": replay["checks"]["parity_ok"], "checks": replay["checks"],
+        "k2_vs_plain": replay["k2_vs_plain"], "launches": launches,
+        "wall_s": replay["wall_s"], "unwitnessed_wall_s": unwitnessed,
+        "wall_over_unwitnessed": replay["wall_s"] / unwitnessed,
+    }
+    return line, only_k2("lint", launches)
 
 
 def main() -> int:
@@ -3258,21 +3357,26 @@ def main() -> int:
     print(json.dumps({"preempt": preempt_line}))
     phase_done("18_preempt")
 
+    # phase 19: koordlint over the port and the witnessed chaos replay
+    lint_line, k2_lint = lint_phase(card, dev, chaos_line["accelerator"]["wall_s"])
+    print(json.dumps({"lint": lint_line}))
+    phase_done("19_lint")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
-    lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt")
+    lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint")
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
-         (0, extras_launches["K1"], 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
+         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
          k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
          (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
-          k2_tree, k2_preempt), k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
+          k2_tree, k2_preempt, k2_lint), k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0),
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0, 0),
          k3_err, k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{

@@ -221,14 +221,14 @@ class _RawChannel:
                     )
                 payload = self._recv(length)
             except TimeoutError as exc:
-                self._drop()
+                self._drop_locked()
                 raise RpcError(
                     StatusCode.DEADLINE_EXCEEDED,
                     f"raw UDS {method} to {self.path} timed out after "
                     f"{timeout:.3f} s",
                 ) from exc
             except OSError as exc:
-                self._drop()
+                self._drop_locked()
                 raise RpcError(
                     StatusCode.UNAVAILABLE,
                     f"raw UDS {method} to {self.path}: {exc}",
@@ -247,7 +247,8 @@ class _RawChannel:
             buf.extend(chunk)
         return bytes(buf)
 
-    def _drop(self) -> None:
+    def _drop_locked(self) -> None:
+        """Close the connection; the caller holds ``_lock``."""
         if self._sock is not None:
             try:
                 self._sock.close()
@@ -257,7 +258,7 @@ class _RawChannel:
 
     def close(self) -> None:
         with self._lock:
-            self._drop()
+            self._drop_locked()
 
 
 def _grpc_channel(target: str, slot: int) -> _Channel:

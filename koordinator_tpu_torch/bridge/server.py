@@ -369,7 +369,7 @@ class ScorerServicer:
         if ctx is not None:
             try:
                 remaining = ctx.time_remaining()
-            except Exception:  # a transport without deadline support must not fail the RPC; the wire field still applies
+            except Exception:  # koordlint: disable=broad-except(a transport without deadline support must not fail the RPC; the wire field still applies)
                 remaining = None
             if remaining is not None:
                 remaining_ms = float(remaining) * 1000.0
@@ -1509,6 +1509,7 @@ class ScorerServicer:
         ``rounds`` stays a device scalar (or None: the dense kernel takes
         a wave request beyond int32) for the stacked readback."""
         with spans.span("dispatch"):
+            # koordlint: disable=lock-held-dispatch(an Assign holds the launch lock for its whole cycle and the kernel ladder synchronizes each rung to demote a faulting kernel there, ROADMAP Queue C "The servicer")
             result = run_cycle(snap, self.cfg, i32_ok=i32_ok)
         return result, result.rounds, self.cfg.wave
 

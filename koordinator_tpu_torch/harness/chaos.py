@@ -816,12 +816,12 @@ class ChaosTraceReplay:
                             try:
                                 engine.score_flat(top_k=k)
                                 break
-                            except Exception:  # faulted-window RPC failures are the scenario under test: counted, the replay continues
+                            except Exception:  # koordlint: disable=broad-except(faulted-window RPC failures are the scenario under test: counted, the replay continues)
                                 rpc_errors += 1
                         t_score = time.perf_counter()
                         try:
                             engine.assign()
-                        except Exception:  # faulted-window RPC failures are the scenario under test: counted, the replay continues
+                        except Exception:  # koordlint: disable=broad-except(faulted-window RPC failures are the scenario under test: counted, the replay continues)
                             rpc_errors += 1
                         t_assign = time.perf_counter()
                         oracle.sync(**kw)

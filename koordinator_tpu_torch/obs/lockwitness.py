@@ -1,12 +1,10 @@
 """Runtime lock witness: FreeBSD WITNESS / Go lockrank for
 the serving tier.
 
-Copy of ``koordinator_tpu/obs/lockwitness.py``.  The reference derives
-its static lock order from its own AST pass; the port has none, so
-:func:`install` without ``order_edges`` checks interleavings against the
-edges observed in this run alone (an observed A->B plus a later B->A is
-still refused).  This module validates lock order against REAL
-interleavings.  Under ``KOORD_LOCK_WITNESS=1`` (or an explicit
+Copy of ``koordinator_tpu/obs/lockwitness.py``.  The static half
+(``analysis/lockgraph.py``) derives the port's lock partial order from
+the AST (``analysis/LOCKORDER.md``); this module validates it against
+REAL interleavings.  Under ``KOORD_LOCK_WITNESS=1`` (or an explicit
 :func:`install`), the ``witness_lock``/``witness_rlock``/
 ``witness_condition`` factories — which every threaded-tier creation
 site routes through — return instrumented wrappers instead of plain
@@ -35,7 +33,7 @@ With the env var unset and no install, the factories return plain
 ``threading`` objects — zero overhead, byte-identical behavior.  The
 factory NAME STRINGS are drift-checked by ``lockorder-doc-drift``
 against the derived identities, so the witness and the graph can never
-disagree about what a lock is called (in the reference).
+disagree about what a lock is called.
 
 Distinct observed edges feed the
 ``koord_scorer_lock_witness_edges_total`` counter (label ``result``:
@@ -196,7 +194,8 @@ class _WitnessState:
                 f"holding {fresh_inversion['held']} but the derived "
                 f"order (static graph + observed edges) already orders "
                 f"{dst!r} before {fresh_inversion['edge'][0]!r} — two "
-                "threads can deadlock on this; see docs/LOCKORDER.md"
+                "threads can deadlock on this; see "
+                "koordinator_tpu_torch/analysis/LOCKORDER.md"
             )
 
     def attach_metrics(self, metrics) -> None:
@@ -252,8 +251,11 @@ def uninstall() -> None:
 
 
 def _repo_order() -> Set[Tuple[str, str]]:
-    # no static pass in the port: only the edges a run observes count
-    return set()
+    from koordinator_tpu_torch.analysis import lockgraph
+    from koordinator_tpu_torch.analysis.core import find_repo_root
+
+    return lockgraph.static_order(find_repo_root(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 
 def _active_state() -> Optional[_WitnessState]:

@@ -356,7 +356,8 @@ _FAMILIES = (
      "distinct lock-acquisition edges the runtime witness "
      "(KOORD_LOCK_WITNESS=1, obs/lockwitness.py) recorded, by result: "
      "observed = consistent with the derived order in "
-     "docs/LOCKORDER.md, inversion = closed a cycle against it (a "
+     "koordinator_tpu_torch/analysis/LOCKORDER.md, inversion = closed a "
+     "cycle against it (a "
      "schedulable deadlock; the witness also raises); 0 when witness "
      "mode is off"),
     (RELAY_POSITION, "gauge",

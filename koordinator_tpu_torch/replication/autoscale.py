@@ -330,7 +330,7 @@ class ReplicaAutoscaler:
                 if action != HOLD:
                     m.count_autoscale_event(action)
                 m.set_autoscale_replicas(self.replicas)
-            except Exception:  # autoscale metrics are observability; they must never stop the control loop
+            except Exception:  # koordlint: disable=broad-except(autoscale metrics are observability; they must never stop the control loop)
                 pass
         return record
 

@@ -288,7 +288,7 @@ class ReplicationSubscriber:
                 self.ancestor_switches += 1
                 try:
                     metrics.count_retry("failover")
-                except Exception:  # failover accounting must never abort a successful dial
+                except Exception:  # koordlint: disable=broad-except(failover accounting must never abort a successful dial)
                     pass
                 logger.warning(
                     "replication parent %s unreachable; re-parented "
@@ -349,7 +349,7 @@ class ReplicationSubscriber:
             self.redials += 1
             try:
                 metrics.count_retry("subscribe")
-            except Exception:  # retry accounting must never kill the redial loop
+            except Exception:  # koordlint: disable=broad-except(retry accounting must never kill the redial loop)
                 pass
             self._stop.wait(self.backoff.delay_ms(attempt) / 1000.0)
             attempt += 1

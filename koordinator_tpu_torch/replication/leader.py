@@ -184,7 +184,7 @@ class _Subscriber:
             if self._on_batch is not None:
                 try:
                     self._on_batch(len(batch))
-                except Exception:  # batch-occupancy accounting must never kill the sender thread
+                except Exception:  # koordlint: disable=broad-except(batch-occupancy accounting must never kill the sender thread)
                     pass
 
 
@@ -449,7 +449,7 @@ class ReplicationPublisher:
         frames (the frames-per-wakeup distribution)."""
         try:
             self.servicer.telemetry.metrics.observe_send_batch(n_frames)
-        except Exception:  # send-batch accounting is observability; it must never kill a sender
+        except Exception:  # koordlint: disable=broad-except(send-batch accounting is observability; it must never kill a sender)
             pass
 
     def stats(self) -> dict:
@@ -491,5 +491,5 @@ class ReplicationPublisher:
             n = len(self._subs)
         try:
             self.servicer.telemetry.metrics.set_replica_followers(n)
-        except Exception:  # gauge update on a dying connection must not mask the drop itself
+        except Exception:  # koordlint: disable=broad-except(gauge update on a dying connection must not mask the drop itself)
             pass

@@ -584,7 +584,7 @@ class SchedulerServer:
         journal = self._open_journal()
         stats = journal.recover(self.servicer)
         journal.attach(self.servicer)
-        # leader boot runs before any transport or elector thread starts; the competing locked writer is promote, which cannot run yet
+        # koordlint: disable=unguarded-shared-state(reason: leader boot runs before any transport or elector thread starts; the competing locked writer is promote, which cannot run yet)
         self.journal = journal
         self.journal_replay = stats
         if stats["replayed_frames"]:
@@ -757,7 +757,7 @@ class SchedulerServer:
                 )
 
                 self._relay_cache = RelayFrameCache()
-                # boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it
+                # koordlint: disable=unguarded-shared-state(reason: boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it)
                 self._publisher = ReplicationPublisher(
                     self.servicer, self.repl_path,
                     journal=self._relay_cache, **repl_kw,
@@ -783,7 +783,7 @@ class SchedulerServer:
                         # each relay serves opens from its OWN export
                         cache.note_full(frame.epoch, frame.generation)
 
-            # boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it
+            # koordlint: disable=unguarded-shared-state(reason: boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it)
             self._subscriber = ReplicationSubscriber(
                 self.replicate_from, self.applier,
                 fallbacks=self._ancestors, on_raw=on_raw,
@@ -793,7 +793,7 @@ class SchedulerServer:
                 ReplicationPublisher,
             )
 
-            # boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it
+            # koordlint: disable=unguarded-shared-state(reason: boot runs before the elector/HTTP threads exist; promote, the locked writer, cannot race it)
             self._publisher = ReplicationPublisher(
                 self.servicer, self.repl_path, journal=self.journal,
                 **repl_kw,
@@ -1257,7 +1257,7 @@ def main(argv=None) -> int:
         device=args.device,
     ).start()
     try:
-        threading.Event().wait()  # main thread parks forever by design; the server threads own the work and KeyboardInterrupt unparks
+        threading.Event().wait()  # koordlint: disable=unbounded-wait(main thread parks forever by design; the server threads own the work and KeyboardInterrupt unparks)
     except KeyboardInterrupt:
         pass
     finally:

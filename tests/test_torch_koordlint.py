@@ -1,0 +1,485 @@
+"""koordlint over the port (``koordinator_tpu_torch/analysis/``) under
+tier-1, held against the reference's own lint.
+
+The generic rules' cases of ``tests/test_koordlint.py`` run through both
+packages: the reference test module is loaded a second time with its
+imports bound to the port and its repo reads pointed at the port's files
+(``bridge/state.py``, ``replication/codec.py``, ``bridge/wirecheck.py``,
+``analysis/LOCKORDER.md``; ``scorer.proto`` and the Go sources are the
+contract both sides read).  The reference's cases run in groups, each
+from its own ``tests/test_torch_koordlint_<group>.py``.  The port's own
+cases follow here: the readbacks of the port's idiom under a lock, the
+same readbacks reached through a call, the port's ``_log`` logger, the
+stub factory shape, and the gate itself — ``run_repo`` over the port
+finds nothing and the suppression audit is clean.  The codec
+(``bridge/wire.py``) against the proto is in
+``tests/test_torch_koordlint_mirror.py``.
+"""
+
+import functools
+import inspect
+import os
+import re
+import subprocess
+import sys
+import textwrap
+import types
+from pathlib import Path
+
+import pytest
+
+from koordinator_tpu_torch.analysis import RULES, lockdispatch, lockgraph
+from koordinator_tpu_torch.analysis.core import run_repo, run_rules_on_source
+from test_torch_constraints import _ON_CPU, PACKAGES
+
+TESTS = Path(__file__).resolve().parent
+REPO = str(TESTS.parent)
+PORT = "koordinator_tpu_torch"
+
+# the port's files in place of the reference's where a case reads the tree
+_PORT_READS = (
+    (re.compile(r'read\("koordinator_tpu",(\s*)"(bridge|replication)",(\s*)'
+                r'"(state|codec|wirecheck)\.py"\)'),
+     r'read("koordinator_tpu_torch",\1"\2",\3"\4.py")'),
+    (re.compile(r'read\("docs", "LOCKORDER\.md"\)'),
+     'read("koordinator_tpu_torch", "analysis", "LOCKORDER.md")'),
+    # the port's codec stands where the reference's generated scorer_pb2
+    # stands
+    (re.compile(r'wire_contract\.check_pb2_descriptor\(sources\["proto"\]\)'),
+     'wire_contract.check_codec_messages(sources["proto"], '
+     'read("koordinator_tpu_torch", "bridge", "wire.py"))'),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def rebound(name: str, package: str) -> types.ModuleType:
+    """The reference test module ``tests/<name>.py`` bound to ``package``.
+
+    Its fixtures become plain functions (``run_case`` drives them), and
+    ``from test_x import ...`` takes the names from ``test_x`` bound to
+    the same package.  For the port, every ``koordinator_tpu.`` import
+    points at the port, ``pb2`` at the port's codec, the repo reads above
+    at the port's files, and every entry point that takes a device is
+    given ``device="cpu"``."""
+    path = TESTS / f"{name}.py"
+    src = path.read_text()
+    src = re.sub(r"(?m)^\s*@pytest\.fixture.*\n", "", src)
+    src = re.sub(r"(?m)^(\s*)from (test_\w+) import (.+)$",
+                 lambda m: f"{m.group(1)}{m.group(3)} = _names({m.group(2)!r}, "
+                           f"{m.group(3)!r})", src)
+    if package == PORT:
+        src = src.replace("from koordinator_tpu.bridge.codegen import pb2",
+                          "from koordinator_tpu_torch.bridge import wire as pb2")
+        for pattern, repl in _PORT_READS:
+            src = pattern.sub(repl, src)
+        src = src.replace("koordinator_tpu.", "koordinator_tpu_torch.")
+        src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(_ON_CPU), r"_on_cpu(\1)(", src)
+    module = types.ModuleType(f"{name}__{package}")
+    module.__file__ = str(path)
+    module._on_cpu = lambda fn: functools.partial(fn, device="cpu")
+
+    def names(other, listed):
+        bound = rebound(other, package)
+        got = tuple(getattr(bound, n.strip()) for n in listed.split(","))
+        return got if len(got) > 1 else got[0]
+
+    module._names = names
+    exec(compile(src, str(path), "exec"), module.__dict__)
+    return module
+
+
+def run_case(module, cls, method, package, **given):
+    """One test method of a rebound reference module.  Each parameter is
+    taken from ``given`` (pytest's own fixtures), else from the class's or
+    the module's fixture of that name, a generator run to its yield and
+    closed after the case."""
+    mod = rebound(module, package)
+    instance = getattr(mod, cls)()
+    fn = getattr(instance, method)
+    kwargs, open_fixtures = {}, []
+    try:
+        for name in inspect.signature(fn).parameters:
+            if name in given:
+                kwargs[name] = given[name]
+                continue
+            value = getattr(instance, name, None) or getattr(mod, name)
+            value = value()
+            if inspect.isgenerator(value):
+                open_fixtures.append(value)
+                value = next(value)
+            kwargs[name] = value
+        fn(**kwargs)
+    finally:
+        for gen in reversed(open_fixtures):
+            next(gen, None)
+
+
+def reference_cases(name, classes, skip=()):
+    module = rebound(name, "koordinator_tpu")
+    return [
+        (name, cls_name, method)
+        for cls_name in classes
+        for method in sorted(vars(getattr(module, cls_name)))
+        if method.startswith("test_") and (cls_name, method) not in skip
+    ]
+
+
+# The generic rules' classes, in groups of at most 40 parametrised tests
+# (20 cases on two packages): each group runs from
+# ``tests/test_torch_koordlint_<group>.py``, so no test file grows past
+# the size the tier-1 run's per-file scheduling keeps balanced.
+GROUPS = {
+    "spans": ("TestSpanLeak", "TestSpanLeakTraceAPI"),
+    "dispatch": ("TestLockHeldDispatch", "TestBareRetry", "TestBroadExcept"),
+    "waits": ("TestUnboundedWait", "TestUnguardedSharedState", "TestSuppressionParsing"),
+    "lockorder": ("TestLockOrderCycle", "TestLockOrderDocDrift", "TestSuppressionAudit"),
+    "wire": ("TestWireContract",),
+    "mirror": ("TestWirecheckMessageMirror", "TestMetricsDocDrift"),
+}
+GENERIC_CLASSES = tuple(cls for classes in GROUPS.values() for cls in classes)
+# the stale-regen case probes the generated scorer_pb2 by field NAME with a
+# duplicated field number; the port's codec is diffed by number, and
+# test_torch_koordlint_mirror.py's test_a_field_only_the_proto_has_fails is
+# its counterpart
+NOT_PORTED = {("TestWireContract", "test_stale_pb2_caught")}
+
+
+def group_cases(group):
+    """The reference cases of one group: ``(module, class, method)``."""
+    return reference_cases("test_koordlint", GROUPS[group], NOT_PORTED)
+
+
+def test_the_reference_cases_are_collected():
+    cases = reference_cases("test_koordlint", GENERIC_CLASSES, NOT_PORTED)
+    assert len(cases) >= 100
+    assert {c[1] for c in cases} == set(GENERIC_CLASSES)
+    for group in GROUPS:
+        assert (TESTS / f"test_torch_koordlint_{group}.py").exists()
+        assert len(PACKAGES) * len(group_cases(group)) <= 40
+
+
+# ---------------------------------------------------------------------------
+# the port's own cases
+# ---------------------------------------------------------------------------
+
+
+def lint(src: str, rules=None):
+    return run_rules_on_source("fixture.py", textwrap.dedent(src), rules)
+
+
+def read(*parts: str) -> str:
+    with open(os.path.join(REPO, *parts), "r", encoding="utf-8") as f:
+        return f.read()
+
+
+class TestPortReadbacksUnderALock:
+    """lock-held-dispatch knows the port's blocking readbacks."""
+
+    @pytest.mark.parametrize("call", [
+        "snap.scores.cpu()", "snap.scores.numpy()", "snap.assignment.tolist()",
+        "snap.rounds.item()", "torch.cuda.synchronize()", "done.synchronize()",
+        "start.elapsed_time(end)", "np.asarray(snap.scores)", "np.array(snap.scores)",
+    ])
+    def test_readback_under_the_state_lock_caught(self, call):
+        out = lint(f"""
+        import numpy as np
+        import torch
+
+        class Servicer:
+            def score(self, done, start, end):
+                with self._state_lock:
+                    snap = self.state.snapshot()
+                    got = {call}
+                return got
+        """, ["lock-held-dispatch"])
+        assert [(v.rule, v.line) for v in out] == [("lock-held-dispatch", 9)]
+        assert "state lock" in out[0].message
+
+    def test_readback_in_a_launch_section_caught(self):
+        out = lint("""
+        import torch
+        from koordinator_tpu_torch.bridge.coalesce import launch_section
+
+        class Servicer:
+            @launch_section
+            def _assign_launch(self, snap):
+                chosen = self.cycle(snap)
+                torch.cuda.synchronize()
+                return chosen.cpu()
+        """, ["lock-held-dispatch"])
+        assert [v.line for v in out] == [9, 10]
+        assert all("launch critical section" in v.message for v in out)
+
+    def test_readback_closure_and_capture_outside_are_clean(self):
+        assert lint("""
+        import torch
+
+        class Servicer:
+            def assign(self):
+                with self._state_lock:
+                    snap = self.state.snapshot()
+
+                    def readback():
+                        return snap.assignment.cpu().tolist()
+                torch.cuda.synchronize()
+                return self.dispatch.run_pipelined(lambda: readback), snap.rounds.item()
+        """, ["lock-held-dispatch"]) == []
+
+
+class TestReadbackThroughACall:
+    """lock-held-dispatch follows a call made under a lock into the
+    functions the lock graph resolves, and flags the call when it reaches
+    a readback only a device value makes."""
+
+    @staticmethod
+    def through(src):
+        return lockdispatch.check_sources({
+            "koordinator_tpu_torch/solver/cycle.py": textwrap.dedent("""
+                import numpy as np
+                import torch
+
+                def run_cycle(snap):
+                    def rung(fn):
+                        def thunk():
+                            out = fn(snap)
+                            torch.cuda.synchronize(snap.device)
+                            return out
+                        return thunk
+                    return ladder([rung(launch)])
+
+                def host_rows(rows):
+                    return np.asarray(rows).tolist()
+                """),
+            "koordinator_tpu_torch/bridge/servicer.py": textwrap.dedent(src),
+        })
+
+    def test_a_ladder_synchronize_under_a_launch_section_caught(self):
+        got = self.through("""
+            from koordinator_tpu_torch.bridge.coalesce import launch_section
+            from koordinator_tpu_torch.solver.cycle import run_cycle
+
+            class Servicer:
+                @launch_section
+                def _assign_cycle(self, snap):
+                    return run_cycle(snap)
+            """)
+        assert [(v.path, v.line) for v in got] == [("koordinator_tpu_torch/bridge/servicer.py", 8)]
+        assert "run_cycle(), reaching torch.cuda.synchronize() at " \
+            "koordinator_tpu_torch/solver/cycle.py:9 through run_cycle.rung.thunk" in got[0].message
+        assert "launch critical section" in got[0].message
+
+    def test_a_device_wait_two_calls_down_under_the_state_lock_caught(self):
+        got = self.through("""
+            class Servicer:
+                def _flush(self, snap):
+                    return self._copy(snap)
+
+                def _copy(self, snap):
+                    return snap.scores.cpu()
+
+                def score(self, snap):
+                    with self._state_lock:
+                        return self._flush(snap)
+            """)
+        assert [v.line for v in got] == [11]
+        assert "through Servicer._flush -> Servicer._copy" in got[0].message
+        assert "state lock" in got[0].message
+
+    def test_host_spellings_count_only_lexically(self):
+        assert self.through("""
+            from koordinator_tpu_torch.solver.cycle import host_rows
+
+            class Servicer:
+                def rows(self, rows):
+                    with self._state_lock:
+                        return host_rows(rows)
+            """) == []
+
+    def test_a_callee_launch_section_is_checked_on_its_own(self):
+        got = self.through("""
+            import torch
+            from koordinator_tpu_torch.bridge.coalesce import launch_section
+
+            class Servicer:
+                @launch_section
+                def _launch(self, snap):
+                    return self._cycle(snap)
+
+                @launch_section
+                def _cycle(self, snap):
+                    def readback():
+                        return snap.assignment.cpu()
+                    torch.cuda.synchronize()
+                    return readback
+            """)
+        assert got == []  # the direct synchronize is the lexical check's
+
+    def test_the_port_raw_pass_flags_the_assign_cycle_and_the_tag_holds(self):
+        raw = [v for v in run_repo(root=REPO, rules=["lock-held-dispatch"],
+                                   honor_suppressions=False)]
+        assert [(v.path, "run_cycle(), reaching torch.cuda.synchronize()" in v.message)
+                for v in raw] == [(f"{PORT}/bridge/server.py", True)]
+        assert run_repo(root=REPO, rules=["lock-held-dispatch"]) == []
+
+
+class TestPortLogger:
+    """broad-except counts the port's module-private ``_log`` as logging."""
+
+    def test_private_log_exception_counts(self):
+        assert lint("""
+        import logging
+
+        _log = logging.getLogger(__name__)
+
+        def notify(listeners):
+            for cb in listeners:
+                try:
+                    cb()
+                except Exception:
+                    _log.exception("listener failed")
+        """, ["broad-except"]) == []
+
+    def test_a_private_non_logger_does_not_count(self):
+        got = lint("""
+        def notify(listeners, _stats):
+            for cb in listeners:
+                try:
+                    cb()
+                except Exception:
+                    _stats.error()
+        """, ["broad-except"])
+        assert [(v.rule, v.line) for v in got] == [("broad-except", 6)]
+
+
+class TestStubFactory:
+    """unbounded-wait sees through a stub factory that returns a partial
+    (the client's ``_stub(channel, method)``), not through an invocation."""
+
+    def test_partial_factory_is_clean(self):
+        assert lint("""
+        import functools
+
+        def _stub(channel, method):
+            return functools.partial(channel.call, method)
+
+        class Client:
+            def __init__(self, channel):
+                self._sync = _stub(channel, "Sync")
+
+            def sync(self, request):
+                return self._sync(request, timeout=5.0)
+        """, ["unbounded-wait"]) == []
+
+    def test_a_stub_invocation_without_a_deadline_is_caught(self):
+        got = lint("""
+        import functools
+
+        def _stub(channel, method):
+            return functools.partial(channel.call, method)
+
+        class Client:
+            def sync(self, request):
+                stub = _stub(self.channel, "Sync")
+                return stub(request)
+        """, ["unbounded-wait"])
+        assert [(v.rule, v.line) for v in got] == [("unbounded-wait", 10)]
+
+    def test_a_non_partial_stub_helper_is_still_an_invocation(self):
+        got = lint("""
+        def _stub(channel, request):
+            return channel.call("Sync", request)
+
+        def sync(channel, request):
+            return _stub(channel, request)
+        """, ["unbounded-wait"])
+        assert [(v.rule, v.line) for v in got] == [("unbounded-wait", 6)]
+
+
+class TestPortIsClean:
+    """The gate: koordlint over the port finds nothing."""
+
+    def test_run_repo_over_the_port_is_empty(self):
+        violations = run_repo(root=REPO)
+        assert violations == [], "\n" + "\n".join(v.format() for v in violations)
+
+    def test_the_one_pass_agrees_with_run_repo_and_the_audit(self, tmp_path):
+        from koordinator_tpu_torch.analysis import suppressions
+
+        pkg = tmp_path / PORT
+        pkg.mkdir()
+        (pkg / "mod.py").write_text(textwrap.dedent("""
+            def first(cb):
+                try:
+                    cb()
+                except Exception:  # koordlint: disable=broad-except(a listener may fail)
+                    pass
+
+            def second(cb):
+                try:
+                    cb()
+                except Exception:
+                    pass
+
+            x = 1  # koordlint: disable=broad-except(nothing here)
+            """))
+        root = str(tmp_path)
+        got = suppressions.lint_pass(root)
+        findings = run_repo(root=root)
+        assert ("broad-except", 11) in {(v.rule, v.line) for v in findings}
+        assert got.findings == findings
+        tags, problems = suppressions.audit(root)
+        assert (got.tags, got.problems) == (tags, problems)
+        assert [(p.line, "stale" in p.message) for p in problems] == [(14, True)]
+        assert set(got.graph.edges) == lockgraph.static_order(root)
+
+    def test_cli(self, tmp_path, monkeypatch, capsys):
+        from koordinator_tpu_torch.analysis.__main__ import main
+
+        assert main(["--list-rules"]) == 0
+        assert capsys.readouterr().out.split() == list(RULES)
+        assert main(["--rules", "no-such-rule"]) == 2
+        # the default root is the package's checkout, not the cwd
+        monkeypatch.chdir(tmp_path)
+        assert main(["--rules", "wire-contract,metrics-doc-drift"]) == 0
+
+    def test_scan_covers_the_port_and_chip_smoke_only(self):
+        from koordinator_tpu_torch.analysis.core import scanned_files
+
+        rel = {os.path.relpath(p, REPO) for p in scanned_files(REPO)}
+        assert "chip_smoke.py" in rel
+        assert f"{PORT}/analysis/lockgraph.py" in rel
+        assert all(p == "chip_smoke.py" or p.startswith(PORT + "/") for p in rel)
+
+    def test_the_ported_rules_only(self):
+        assert set(RULES) == {
+            "broad-except", "span-leak", "lock-held-dispatch", "bare-retry",
+            "unbounded-wait", "wire-contract", "metrics-doc-drift", "lock-order-cycle",
+            "lockorder-doc-drift", "unguarded-shared-state"}
+        for rule in RULES:
+            run_rules_on_source("f.py", "", [rule])
+
+    def test_the_derived_graph_is_the_ports(self):
+        graph = lockgraph.repo_graph(REPO)
+        assert len(graph.locks) >= 30 and len(graph.edges) >= 20
+        assert all(not site.path.startswith("koordinator_tpu/") for site in graph.locks.values())
+        # the port's launch lock orders before its own solver lock
+        assert ("bridge.coalesce.CoalescingDispatcher._launch_lock",
+                "solver._LOCK") in graph.edges
+        assert lockgraph.find_cycles(graph) == []
+        assert graph.violations == []
+
+    def test_the_cli_runs_with_jax_and_the_reference_blocked(self):
+        code = (
+            "import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'koordinator_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['koordlint', '--rules', 'wire-contract,metrics-doc-drift,"
+            "lock-order-cycle,lockorder-doc-drift']\n"
+            "try:\n"
+            "    runpy.run_module('koordinator_tpu_torch.analysis', run_name='__main__')\n"
+            "except SystemExit as exc:\n"
+            "    sys.exit(exc.code)\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr

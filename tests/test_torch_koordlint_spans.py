@@ -1,0 +1,16 @@
+"""The span-leak rule's (``TestSpanLeak``, ``TestSpanLeakTraceAPI``) cases of
+``tests/test_koordlint.py`` on both packages, through the rebinding of
+``tests/test_torch_koordlint.py`` (group ``spans``)."""
+
+import pytest
+
+from test_torch_constraints import PACKAGES
+from test_torch_koordlint import group_cases, run_case
+
+CASES = group_cases("spans")
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+@pytest.mark.parametrize("module,cls,method", CASES, ids=["::".join(c[1:]) for c in CASES])
+def test_reference_case(module, cls, method, package, tmp_path, capsys):
+    run_case(module, cls, method, package, tmp_path=tmp_path, capsys=capsys)
