@@ -192,7 +192,36 @@ Phases (any failure raises and exits non-zero, printing no result):
     the static order lacks, parity with the serial oracle, its K2 launch
     at the cold step held against ``cycle_wide_reference``, and its wall
     over the unwitnessed replay's (``lint_launches`` on the ``kernels``
-    line).
+    line);
+20. (run before phase 10's lines) ``koordlet``: the node agent
+    (``koordinator_tpu_torch/koordlet/``, ``native.py``, the runtime
+    proxy): (a) the CUDA device enumeration (count 1, equal to the device
+    line's, minor 0, memory used while the headline's tensors are
+    resident), the ``DeviceCollector``'s stored memory and the
+    ``DeviceReporter``'s one Device CR; (b) the native library built by
+    ``g++`` (its seconds), ``read_files`` over the fleet's sysfs files equal
+    to Python's reads, its delta codec on the fleet's 2,000 x 13 node rows
+    with the ``incremental`` recipe's 64 changed rows byte-identical to
+    ``bridge/state.py delta_encode`` (apply reproduces the next rows), and
+    the CPI reading or the errno it is unavailable for; (c) 2,000 nodes'
+    reports (``harness/koordlet_fleet.py``: a ``StatesInformer`` per node
+    with ``NodeTopoReporter`` over a sysfs tree of its NUMA layout, one
+    tree per shape, ``DeviceReporter`` over its GPU minors,
+    ``NodeMetricReporter`` over seeded samples) build the extras snapshot
+    at 10,000 pods x 2,000 nodes, its usage column equal to the
+    scenario's, and ``FrameworkExtender.run_cycle`` on K2 exact against
+    ``greedy_assign`` on the same tables, no demotion and no other kernel
+    (the report pass, adapt plus encode and the cycle timed), and at the
+    anchor recipe the card's digest against ``KOORDLET_ANCHOR_SHA256``;
+    (d) every placed GPU pod that passed Reserve: its PreBind
+    ``device-allocated`` annotation through PreCreateContainer in the CRI
+    proxy (hooks in a koordlet process behind ``RemoteHookRegistry``), the
+    docker proxy and NRI, ``NVIDIA_VISIBLE_DEVICES`` identical in the three
+    and equal to the allocation's minors (ms per pod per mode); (e)
+    ``build_default_daemon`` over a temporary root whose ``/proc`` and
+    cgroup counters advance between 16 fake-clock ticks, the tree's digest
+    against ``KOORDLET_QOS_SHA256`` and ``/metrics`` answering
+    (``koordlet_launches`` on the ``kernels`` line).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -1824,7 +1853,7 @@ def extras_phase(card, dev, counted, only):
         extended_plugins, extras_context, extras_snapshot, plugin_extra_tensors,
     )
     from koordinator_tpu_torch.scheduler.framework import FrameworkExtender
-    from koordinator_tpu_torch.solver import greedy, greedy_assign, run_cycle
+    from koordinator_tpu_torch.solver import greedy_assign, run_cycle
 
     def framework():
         fx = FrameworkExtender(extended_plugins())
@@ -1866,20 +1895,7 @@ def extras_phase(card, dev, counted, only):
     comp_bound, comp_bound_by = _bound(out_bytes + in_bytes, 0)
 
     # the composition against the CPU path on pod rows spread across [0, P)
-    rows = torch.linspace(0, P - 1, EXTRAS_CPU_ROWS).round().long()
-    if len(set(rows.tolist())) != EXTRAS_CPU_ROWS:
-        raise AssertionError("extras: sampled pod rows repeat")
-    snap_cpu = map_snapshot(snap, lambda t: t.cpu())
-    rsv_cpu = rsv.to("cpu")
-    sub = greedy._pod_rows(snap_cpu, rows)
-    sub_rsv = dataclasses.replace(rsv_cpu, matched=rsv_cpu.matched[rows],
-                                  affinity_required=rsv_cpu.affinity_required[rows])
-    t0 = time.perf_counter()
-    m_cpu, s_cpu = plugin_extra_tensors(sub, zones.to("cpu"), policy, devices.to("cpu"),
-                                        sub_rsv)
-    cpu_rows_s = time.perf_counter() - t0
-    if not (torch.equal(m_cpu, mask[rows].cpu()) and torch.equal(s_cpu, scores[rows].cpu())):
-        raise AssertionError("extras: the card's mask or scores differ from the CPU path")
+    cpu_rows_s = extras_rows_on_cpu("extras", snap, tables, mask, scores)
 
     # the cycle through the FrameworkExtender, on K2 and on K1, each against
     # one plain run; the hooks' Reserve failures are claimed by a handler
@@ -1909,7 +1925,8 @@ def extras_phase(card, dev, counted, only):
     card_view = hooks_view(ctx, patches, failures)
     result_cpu = dataclasses.replace(result, assignment=result.assignment.cpu(),
                                      status=result.status.cpu())
-    tables_cpu = (zones.to("cpu"), policy, devices.to("cpu"), rsv_cpu)
+    snap_cpu = map_snapshot(snap, lambda t: t.cpu())
+    tables_cpu = (zones.to("cpu"), policy, devices.to("cpu"), rsv.to("cpu"))
     ctx_c, patches_c, failures_c, cpu_hooks_ms = run_hooks(
         with_lsr(snap_cpu), tables_cpu, topo, result_cpu)
     if hooks_view(ctx_c, patches_c, failures_c) != card_view:
@@ -2995,6 +3012,495 @@ def lint_phase(card, dev, unwitnessed):
     return line, only_k2("lint", launches)
 
 
+# the koordlet line (phase 20)
+KOORDLET_RECIPE = {"seed": 0, "pods": 10000, "nodes": 2000, "tenants": 16}
+KOORDLET_DELTA_SEED = 8  # the incremental recipe's seed
+UDS_PATH_MAX = 107
+
+
+def koordlet_device_leg(now):
+    """(a) the CUDA enumeration, the collector's stored memory and the
+    Device CR, while the headline's tensors are resident."""
+    import torch
+
+    from koordinator_tpu_torch.koordlet import collectors
+    from koordinator_tpu_torch.koordlet import metriccache as mc
+    from koordinator_tpu_torch.koordlet import statesinformer as si
+
+    torch.cuda.synchronize()
+    devs = collectors._cuda_devices()
+    count = torch.cuda.device_count()
+    if (len(devs) != 1 or count != 1 or devs[0]["minor"] != 0
+            or devs[0]["platform"] != "gpu" or devs[0]["memory_used"] <= 0):
+        raise AssertionError(f"koordlet device: enumeration {devs}, device count {count}")
+    cache = mc.MetricCache()
+    collectors.DeviceCollector(cache).collect(now)
+    stored = cache.query(mc.DEVICE_MEMORY_USED, start=now - 1, end=now, agg=mc.AGG_LATEST,
+                         labels={"minor": "0"})
+    if stored != float(devs[0]["memory_used"]):
+        raise AssertionError(f"koordlet device: stored {stored}, enumerated {devs[0]}")
+    crs = si.DeviceReporter(si.StatesInformer()).sync(now)
+    if [(d["type"], d["minor"]) for d in crs] != [("gpu", 0)]:
+        raise AssertionError(f"koordlet device: Device CR {crs}")
+    return {"count": len(devs), "device_count": count, "minor": devs[0]["minor"],
+            "platform": devs[0]["platform"], "memory_used": devs[0]["memory_used"],
+            "stored_memory_used": stored, "device_crs": len(crs)}
+
+
+def koordlet_native_leg(fleet, base):
+    """(b) the native library: its build, its batched reads of the fleet's
+    sysfs files against Python's, its delta codec on the fleet's node rows
+    against the numpy one, and the CPI reading or why there is none."""
+    import os
+
+    import numpy as np
+
+    from koordinator_tpu_torch import native
+    from koordinator_tpu_torch.bridge.state import delta_encode
+    from koordinator_tpu_torch.harness import koordlet_fleet as kf
+
+    if not native.available():
+        raise AssertionError(f"koordlet native: unavailable: {native.build_info()}")
+    info = native.build_info()
+    files = kf.tree_files([os.path.join(base, d) for d in os.listdir(base)])
+    t0 = time.perf_counter()
+    got = native.read_files(files)
+    native_read_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = []
+    for p in files:
+        with open(p) as f:
+            want.append(f.read())
+    python_read_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError("koordlet native: read_files differs from Python's reads")
+
+    # the incremental recipe's 64 changed node rows on the fleet's rows
+    prev = fleet.snapshot.nodes.requested.cpu().numpy().astype(np.int64)
+    alloc = fleet.snapshot.nodes.allocatable.cpu().numpy()
+    n, r = prev.shape
+    rows = np.unique((np.arange(64) * max(1, n // 64)) % n)
+    rng = np.random.default_rng(KOORDLET_DELTA_SEED)
+    nxt = prev.copy()
+    nxt[rows[:, None], [0, 1]] = (alloc[rows][:, [0, 1]]
+                                  * rng.uniform(0, 0.5, (len(rows), 2))).astype(np.int64)
+    t0 = time.perf_counter()
+    enc = native.delta_encode(prev, nxt)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_idx, want_val = delta_encode(prev, nxt, prev.size)
+    numpy_encode_ms = (time.perf_counter() - t0) * 1e3
+    if enc is None or enc[0].tobytes() != want_idx.tobytes() or \
+            enc[1].tobytes() != want_val.tobytes():
+        raise AssertionError("koordlet native: delta_encode differs from the numpy codec")
+    base_rows = prev.copy()
+    t0 = time.perf_counter()
+    native.delta_apply(base_rows, *enc)
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(base_rows, nxt):
+        raise AssertionError("koordlet native: delta_apply did not reproduce the next rows")
+    try:
+        with native.PerfCPIGroup(0) as group:
+            cycles, instructions = group.read()
+        cpi = {"cycles": cycles, "instructions": instructions}
+    except OSError as exc:
+        cpi = {"unavailable": f"errno {exc.errno}: {exc.strerror}"}
+    return {"available": True, "library": os.path.basename(info["path"]),
+            "built_here": info["built"], "build_s": info["seconds"],
+            "files": len(files), "read_files_ms": native_read_ms,
+            "python_read_ms": python_read_ms, "rows": [n, r], "changed_rows": len(rows),
+            "changed_cells": len(enc[0]), "delta_encode_ms": encode_ms,
+            "numpy_delta_encode_ms": numpy_encode_ms, "delta_apply_ms": apply_ms,
+            "delta": "byte-identical to bridge/state.py delta_encode; apply reproduces the "
+                     "next rows", "cpi": cpi}
+
+
+def extras_rows_on_cpu(what, snap, tables, mask, scores):
+    """Hold the card's plugin mask and scores against ``plugin_extra_tensors``
+    on the CPU, on ``EXTRAS_CPU_ROWS`` pod rows spread across the snapshot;
+    ``tables`` is (zones, policy, devices, rsv).  Returns the CPU path's
+    seconds."""
+    import torch
+
+    from koordinator_tpu_torch.harness.extras_scenario import plugin_extra_tensors
+    from koordinator_tpu_torch.solver import greedy
+
+    zones, policy, devices, rsv = tables
+    P = snap.pods.capacity
+    rows = torch.linspace(0, P - 1, EXTRAS_CPU_ROWS).round().long()
+    if len(set(rows.tolist())) != EXTRAS_CPU_ROWS:
+        raise AssertionError(f"{what}: sampled pod rows repeat")
+    snap_cpu = map_snapshot(snap, lambda t: t.cpu())
+    rsv_cpu = rsv.to("cpu")
+    sub = greedy._pod_rows(snap_cpu, rows)
+    sub_rsv = dataclasses.replace(rsv_cpu, matched=rsv_cpu.matched[rows],
+                                  affinity_required=rsv_cpu.affinity_required[rows])
+    t0 = time.perf_counter()
+    m_cpu, s_cpu = plugin_extra_tensors(sub, zones.to("cpu"), policy, devices.to("cpu"),
+                                        sub_rsv)
+    seconds = time.perf_counter() - t0
+    if not (torch.equal(m_cpu, mask[rows].cpu()) and torch.equal(s_cpu, scores[rows].cpu())):
+        raise AssertionError(f"{what}: the card's mask or scores differ from the CPU path")
+    return seconds
+
+
+def koordlet_fleet_leg(dev, base, counted, only):
+    """(c) 2,000 nodes' reports build the extras snapshot; the extended-plugin
+    cycle on K2 over it, exact against the plain cycle; the anchor.
+    Returns (line, K2 launches, fleet, the framework, the cycle's context,
+    its result, the list its Reserve failures land in)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.harness import koordlet_fleet as kf
+    from koordinator_tpu_torch.harness.anchor import (
+        ANCHOR_RECIPE, KOORDLET_ANCHOR_SHA256, cycle_digest,
+    )
+    from koordinator_tpu_torch.harness.extras_scenario import (
+        extended_plugins, extras_context, plugin_extra_tensors,
+    )
+    from koordinator_tpu_torch.model import resources as res
+    from koordinator_tpu_torch.scheduler.framework import FrameworkExtender
+    from koordinator_tpu_torch.solver import greedy_assign, run_cycle
+
+    def framework(failures):
+        fx = FrameworkExtender(extended_plugins())
+        fx.register_error_handler(lambda ctx, p, exc: failures.append(p) or True)
+        return fx
+
+    # the anchor recipe first: the same pipeline, the card's cycle against
+    # the JAX-derived digest
+    anchor = kf.fleet_snapshot(os.path.join(base, "anchor"), **ANCHOR_RECIPE,
+                               impl=kf.port_impl(dev))
+    res_a = framework([]).run_cycle(extras_context(anchor.snapshot, *anchor.tables))
+    digest = cycle_digest(res_a.assignment.cpu(), res_a.status.cpu())
+    if res_a.path != "cuda" or digest != KOORDLET_ANCHOR_SHA256:
+        raise AssertionError(f"koordlet anchor: path {res_a.path}, digest {digest}")
+
+    t0 = time.perf_counter()
+    fleet = kf.fleet_snapshot(os.path.join(base, "fleet"), **KOORDLET_RECIPE,
+                              impl=kf.port_impl(dev))
+    fleet_s = time.perf_counter() - t0
+    snap = fleet.snapshot
+    n = KOORDLET_RECIPE["nodes"]
+    usage = snap.nodes.usage[:n].cpu().numpy()
+    if not np.array_equal(usage, kf.fleet_usage_rows(res, fleet.nodes)):
+        raise AssertionError("koordlet fleet: the reports' usage is not the scenario's")
+    mask, scores = plugin_extra_tensors(snap, *fleet.tables)
+    # the composition over the report-built tables against the CPU path,
+    # before the card's mask and scores feed the plain cycle
+    cpu_rows_s = extras_rows_on_cpu("koordlet fleet", snap, fleet.tables, mask, scores)
+    oracle = greedy_assign(snap, extra_mask=mask, extra_scores=scores)
+    failures = []
+    fx = framework(failures)
+    ctx = extras_context(snap, *fleet.tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, counts = counted("koordlet fleet", oracle, lambda: fx.run_cycle(ctx))
+    framework_ms = (time.perf_counter() - t0) * 1e3
+    launches = only("the koordlet fleet cycle", counts, "cycle_wide")
+    cycle_ev, cycle_wall = cuda_time(
+        lambda: run_cycle(snap, extra_mask=mask, extra_scores=scores))
+    seconds = fleet.reports.node_seconds
+    line = {
+        "recipe": f"extras_snapshot{KOORDLET_RECIPE}, usage, zones and devices from "
+                  "each node's koordlet reports",
+        "nodes": n, "pods": KOORDLET_RECIPE["pods"], "sysfs_trees": fleet.reports.trees,
+        "zones": int(fleet.zones.valid.sum()), "devices": int(fleet.devices.valid.sum()),
+        "fleet_build_s": fleet_s,
+        "report_pass_s": fleet.reports.wall_s, "report_node_s_sum": sum(seconds),
+        "report_p50_ms_per_node": statistics.median(seconds) * 1e3,
+        "adapt_encode_s": fleet.adapt_encode_s,
+        "usage_from_reports": "equal to the scenario's node usage",
+        "cpu_rows_checked": EXTRAS_CPU_ROWS, "cpu_rows_s": cpu_rows_s,
+        "assigned": int((result.assignment >= 0).sum()),
+        "launches": launches,
+        "framework_cycle_ms_host_wall": framework_ms,
+        "cycle_ms_cuda_events": cycle_ev, "cycle_ms_host_wall": cycle_wall,
+        "parity": "K2 exact vs greedy_assign on the same tables, all five arrays; "
+                  "no demotion, no other kernel",
+        "anchor": f"{ANCHOR_RECIPE}: K2 digest matches KOORDLET_ANCHOR_SHA256",
+    }
+    return line, launches, fleet, fx, ctx, result, failures
+
+
+def spawn_hook_server(path):
+    """A koordlet process serving the default hook registry on ``path``
+    (``hook_server_ready`` waits for it to serve)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys\n"
+            "from koordinator_tpu_torch.koordlet.hookserver import HookServer\n"
+            "from koordinator_tpu_torch.koordlet.runtimehooks import default_registry\n"
+            "server = HookServer(sys.argv[1], default_registry()).start()\n"
+            "print('ready', flush=True)\n"
+            "sys.stdin.read()\n"
+            "server.stop()\n")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-c", code, path], cwd=root, env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+
+def hook_server_ready(proc, timeout=60.0):
+    """Wait up to ``timeout`` seconds for the hook server process to print
+    ``ready``; raises with its exit code when it does not."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline().strip() if ready else ""
+    if line != "ready":
+        raise AssertionError(f"koordlet hooks: the hook server process did not start "
+                             f"within {timeout} s (exit code {proc.poll()}, said {line!r})")
+
+
+def stop_hook_server(proc):
+    """End the hook server process: its stdin closed, then killed if it
+    has not exited within 30 s.  Returns its exit code."""
+    proc.stdin.close()
+    try:
+        return proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        return proc.returncode
+
+
+def koordlet_hooks_leg(gpu_pods, tmp, hook_proc, hook_path):
+    """(d) each GPU pod's ``device-allocated`` annotation through
+    PreCreateContainer in the CRI proxy (over ``hook_proc``, a hook server
+    in its own koordlet process on ``hook_path``), the docker proxy and
+    NRI: the container env of each mode.  ``gpu_pods`` is [(uid,
+    annotation)]."""
+    import http.client
+    import json as _json
+    import os
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from koordinator_tpu_torch.httpserving import HTTPLifecycle
+    from koordinator_tpu_torch.koordlet.hookserver import RemoteHookRegistry
+    from koordinator_tpu_torch.koordlet.nri import (
+        EVENT_CREATE_CONTAINER, EVENT_RUN_POD_SANDBOX, NriPlugin, NriRuntime,
+    )
+    from koordinator_tpu_torch.koordlet.runtimehooks import (
+        DEVICE_ALLOCATED_ANNOTATION as ANN, default_registry,
+    )
+    from koordinator_tpu_torch.runtimeproxy import CRIRequest
+    from koordinator_tpu_torch.runtimeproxy_docker import DockerProxyServer
+    from koordinator_tpu_torch.runtimeproxy_server import (
+        CRIProxyClient, CRIProxyServer, FakeRuntimeServer,
+    )
+
+    paths = {k: os.path.join(tmp, f"{k}.sock") for k in ("rt", "cri", "nri")}
+    if max(len(p) for p in paths.values()) > UDS_PATH_MAX:
+        raise AssertionError(f"koordlet hooks: socket paths too long under {tmp}")
+    env = {"cri": {}, "docker": {}, "nri": {}}
+    ms = {}
+
+    # the CRI proxy; the hooks run in the koordlet process
+    hook_server_ready(hook_proc)
+    backend = FakeRuntimeServer(paths["rt"]).start()
+    remote = RemoteHookRegistry(hook_path)
+    proxy = CRIProxyServer(paths["cri"], paths["rt"], remote).start()
+    client = CRIProxyClient(paths["cri"])
+    try:
+        t0 = time.perf_counter()
+        for uid, ann in gpu_pods:
+            client.call(CRIRequest(call="RunPodSandbox", pod_uid=uid,
+                                   annotations={ANN: ann},
+                                   labels={"koordinator.sh/qosClass": "LS"}))
+            resp = client.call(CRIRequest(call="CreateContainer", pod_uid=uid,
+                                          container_name="main"))
+            env["cri"][uid] = resp["env"].get("NVIDIA_VISIBLE_DEVICES")
+        ms["cri"] = (time.perf_counter() - t0) * 1e3 / max(len(gpu_pods), 1)
+    finally:
+        client.close()
+        proxy.stop()
+        remote.close()
+        backend.stop()
+    code = stop_hook_server(hook_proc)
+    if code != 0:
+        raise AssertionError(f"koordlet hooks: hook server exited {code}")
+
+    # the docker proxy in front of a dockerd stand-in that keeps each
+    # container's Env
+    created = {}
+
+    class Dockerd(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        disable_nagle_algorithm = True
+
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            body = _json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+            created[body["Labels"]["io.kubernetes.pod.uid"]] = body.get("Env") or []
+            data = b'{"Id": "c"}'
+            self.send_response(201)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    dockerd = HTTPLifecycle(ThreadingHTTPServer(("127.0.0.1", 0), Dockerd))
+    dockerd.start()
+    docker = DockerProxyServer(default_registry(),
+                               ("127.0.0.1", dockerd.httpd.server_address[1])).start()
+    conn = http.client.HTTPConnection("127.0.0.1", docker.port, timeout=30)
+    try:
+        t0 = time.perf_counter()
+        for uid, ann in gpu_pods:
+            body = _json.dumps({"Labels": {
+                "io.kubernetes.pod.uid": uid, "io.kubernetes.container.name": "main",
+                "koordinator.sh/qosClass": "LS", f"annotation.{ANN}": _json.dumps(ann),
+            }, "HostConfig": {}}).encode()
+            conn.request("POST", "/v1.43/containers/create", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            if resp.status != 201:
+                raise AssertionError(f"koordlet hooks: docker create answered {resp.status}")
+            pairs = dict(e.split("=", 1) for e in created[uid])
+            env["docker"][uid] = pairs.get("NVIDIA_VISIBLE_DEVICES")
+        ms["docker"] = (time.perf_counter() - t0) * 1e3 / max(len(gpu_pods), 1)
+    finally:
+        conn.close()
+        docker.stop()
+        dockerd.stop()
+
+    # NRI: the koordlet registers as a plugin on the runtime's socket
+    runtime = NriRuntime(paths["nri"])
+    box = {}
+    registering = threading.Thread(
+        target=lambda: box.update(plugin=NriPlugin(paths["nri"], default_registry())))
+    registering.start()
+    try:
+        runtime.accept_plugin(timeout=30.0)
+        registering.join(timeout=30.0)
+        t0 = time.perf_counter()
+        for uid, ann in gpu_pods:
+            runtime.event({"event": EVENT_RUN_POD_SANDBOX, "pod": {
+                "uid": uid, "labels": {"koordinator.sh/qosClass": "LS"},
+                "annotations": {ANN: ann}}})
+            reply = runtime.event({"event": EVENT_CREATE_CONTAINER, "pod": {"uid": uid},
+                                   "container": {"name": "main"}})
+            pairs = {e["key"]: e["value"] for e in reply["adjustment"].get("env", [])}
+            env["nri"][uid] = pairs.get("NVIDIA_VISIBLE_DEVICES")
+        ms["nri"] = (time.perf_counter() - t0) * 1e3 / max(len(gpu_pods), 1)
+    finally:
+        if "plugin" in box:
+            box["plugin"].close()
+        runtime.close()
+
+    for uid, ann in gpu_pods:
+        want = ",".join(str(e["minor"]) for e in ann["gpu"])
+        got = {mode: env[mode].get(uid) for mode in env}
+        if set(got.values()) != {want}:
+            raise AssertionError(f"koordlet hooks: pod {uid}: {got}, allocation {want}")
+    return {"pods": len(gpu_pods), "modes": ["cri proxy (hooks in a koordlet process)",
+                                             "docker proxy", "nri"],
+            "cut": None, "ms_per_pod": ms,
+            "env": "NVIDIA_VISIBLE_DEVICES identical in the three modes and equal to each "
+                   "allocation's minors"}
+
+
+def koordlet_daemon_leg(dev, tmp):
+    """(e) ``build_default_daemon`` over a synthetic node under ``tmp``: the
+    tree's digest after 16 fake-clock ticks against the JAX-derived
+    constant, and its ``/metrics`` endpoint."""
+    import urllib.request
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    from koordinator_tpu_torch.harness import koordlet_fleet as kf
+    from koordinator_tpu_torch.harness.anchor import KOORDLET_QOS_SEED, KOORDLET_QOS_SHA256
+    from koordinator_tpu_torch.httpserving import HTTPLifecycle
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    tree = kf.QosTree(tmp, KOORDLET_QOS_SEED)
+    d = kf.qos_daemon(kf.port_impl(dev), tmp)
+    http = None
+    try:
+        digest, ran, tick_ms = kf.run_qos_ticks(d, tree)
+        if digest != KOORDLET_QOS_SHA256:
+            raise AssertionError(f"koordlet daemon: cgroup digest {digest}")
+        http = HTTPLifecycle(make_server("127.0.0.1", 0, d.metrics.wsgi_app,
+                                         handler_class=Quiet))
+        http.start()
+        url = f"http://127.0.0.1:{http.httpd.server_address[1]}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            status, text = resp.status, resp.read().decode()
+        if status != 200 or "koordlet_ticks_total" not in text:
+            raise AssertionError(f"koordlet daemon: /metrics answered {status}")
+    finally:
+        if http is not None:
+            http.stop()
+        d.shutdown()
+    return {"cgroup_root": "a temporary directory", "ticks": len(tick_ms),
+            "strategies": len(d.qos.strategies), "strategies_last_tick": ran[-1],
+            "evictions": len(d.evictor.evicted), "digest": "matches KOORDLET_QOS_SHA256",
+            "tick_ms_p50": statistics.median(tick_ms), "tick_ms_max": max(tick_ms),
+            "metrics": "/metrics answers 200 with koordlet_ticks_total"}
+
+
+def koordlet_phase(card, dev, counted, only):
+    """The ``koordlet`` line (phase 20) and K2's launches on it."""
+    import os
+    import shutil
+    import tempfile
+
+    from koordinator_tpu_torch.koordlet.runtimehooks import DEVICE_ALLOCATED_ANNOTATION
+
+    tmp = tempfile.mkdtemp(prefix="kl")
+    # the koordlet process of the hooks leg starts now, beside the fleet
+    hook_path = os.path.join(tmp, "hook.sock")
+    if len(hook_path) > UDS_PATH_MAX:
+        raise AssertionError(f"koordlet hooks: socket path too long: {hook_path}")
+    hook_proc = spawn_hook_server(hook_path)
+    try:
+        t0 = time.perf_counter()
+        device = koordlet_device_leg(time.time())
+        legs_s = {"device": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        fleet_line, launches, fleet, fx, ctx, result, failures = koordlet_fleet_leg(
+            dev, os.path.join(tmp, "sys"), counted, only)
+        legs_s["fleet"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native_line = koordlet_native_leg(fleet, os.path.join(tmp, "sys", "fleet"))
+        legs_s["native"] = time.perf_counter() - t0
+        # the GPU pods the cycle placed and Reserve admitted: their PreBind
+        # annotation
+        t0 = time.perf_counter()
+        fx.run_reserve(ctx, result)
+        patches = fx.pre_bind_patches(ctx, result)
+        pods = fleet.pods
+        gpu_pods = [(pods[p]["name"], patch["annotations"][DEVICE_ALLOCATED_ANNOTATION])
+                    for p, patch in sorted(patches.items())
+                    if "gpu" in patch["annotations"].get(DEVICE_ALLOCATED_ANNOTATION, {})]
+        if not gpu_pods:
+            raise AssertionError("koordlet hooks: no placed GPU pod passed Reserve")
+        reserve_ms = (time.perf_counter() - t0) * 1e3
+        hooks = koordlet_hooks_leg(gpu_pods, os.path.join(tmp, "h"), hook_proc, hook_path)
+        hooks.update(reserve_prebind_ms=reserve_ms, reserve_failures=len(failures),
+                     placed_gpu_pods=len(gpu_pods))
+        legs_s["hooks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        daemon = koordlet_daemon_leg(dev, os.path.join(tmp, "node"))
+        legs_s["daemon"] = time.perf_counter() - t0
+    finally:
+        if hook_proc.poll() is None:
+            stop_hook_server(hook_proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {"card": card, "device": device, "native": native_line, "fleet": fleet_line,
+            "hooks": hooks, "daemon": daemon, "legs_s": legs_s}
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -3362,21 +3868,28 @@ def main() -> int:
     print(json.dumps({"lint": lint_line}))
     phase_done("19_lint")
 
+    # phase 20: the node agent's reports feeding the extras cycle
+    koordlet_line, k2_koordlet = koordlet_phase(card, dev, counted, only)
+    print(json.dumps({"koordlet": koordlet_line}))
+    phase_done("20_koordlet")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
-    lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint")
+    lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint",
+             "koordlet")
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
-         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
+         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
          k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
          (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
-          k2_tree, k2_preempt, k2_lint), k2_err, k2_ms, k2_plain_ms, k2_bound, k2_bound_by),
+          k2_tree, k2_preempt, k2_lint, k2_koordlet), k2_err, k2_ms, k2_plain_ms, k2_bound,
+         k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0, 0),
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0, 0, 0),
          k3_err, k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{

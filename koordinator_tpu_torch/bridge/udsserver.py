@@ -30,6 +30,7 @@ import threading
 from typing import Optional, Tuple
 
 from koordinator_tpu_torch.bridge import wire
+from koordinator_tpu_torch.bridge.acceptloop import join_unless_current, wake_accept_loop
 from koordinator_tpu_torch.bridge.server import ScorerServicer
 from koordinator_tpu_torch.config import CycleConfig, DEFAULT_CYCLE_CONFIG
 
@@ -136,7 +137,7 @@ class RawUdsServer:
     def stop(self) -> None:
         self._stop.set()
         try:
-            self._wake_accept_loop()
+            wake_accept_loop(self.path, self._thread)
             self._sock.close()
         finally:
             with self._conns_lock:
@@ -152,25 +153,9 @@ class RawUdsServer:
                     pass
             if os.path.exists(self.path):
                 os.unlink(self.path)
-            if (self._thread.is_alive()
-                    and self._thread is not threading.current_thread()):
-                self._thread.join(timeout=5.0)
+            join_unless_current(self._thread)
 
     # -- internals --
-    def _wake_accept_loop(self) -> None:
-        """Connect once to the listening socket, so a thread blocked in
-        ``accept()`` returns, sees the stop and ends, letting go of the
-        servicer: neither closing a listening socket nor shutting it down
-        wakes ``accept()`` on every kernel."""
-        if not self._thread.is_alive():
-            return
-        try:
-            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as poke:
-                poke.settimeout(1.0)
-                poke.connect(self.path)
-        except OSError:
-            pass
-
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
             try:

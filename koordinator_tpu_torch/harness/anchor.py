@@ -126,3 +126,17 @@ def plan_digest(planned) -> str:
     """sha256 of a Balance plan (a list of dicts) as canonical JSON."""
     text = json.dumps(list(planned), sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(text.encode()).hexdigest()
+
+
+# The node agent (``chip_smoke.py``'s ``koordlet`` line):
+# ``KOORDLET_ANCHOR_SHA256`` is the cycle digest of the reference's
+# extended-plugin cycle at ``ANCHOR_RECIPE`` on the snapshot that
+# ``harness/koordlet_fleet.py fleet_snapshot`` builds from the reference
+# koordlet's reports (NodeTopoReporter, DeviceReporter, NodeMetricReporter
+# of every node, their samples seeded by the recipe's seed), and
+# ``KOORDLET_QOS_SHA256`` the reference daemon's ``run_qos_ticks`` digest
+# over ``QosTree(root, KOORDLET_QOS_SEED)``.  ``tests/test_torch_koordlet.py``
+# recomputes both from the JAX package.
+KOORDLET_ANCHOR_SHA256 = "96d74f79315c589889c34b8d4ee7aac7cca1b541b7c23bc68ef903d7ad842986"
+KOORDLET_QOS_SEED = 0
+KOORDLET_QOS_SHA256 = "46dbec235dd5c52bd80e034979a84566f779ed493ad85aab87244a5b14595c61"

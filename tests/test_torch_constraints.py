@@ -40,7 +40,7 @@ PACKAGES = ("koordinator_tpu", "koordinator_tpu_torch")
 # the CPU
 _ON_CPU = ("encode_snapshot", "encode_reservations", "encode_zones", "encode_devices",
            "ScorerServicer", "FollowerServicer", "ChaosTier", "ChaosTraceReplay",
-           "RelayTier")
+           "RelayTier", "extras_scenario")
 
 
 @functools.lru_cache(maxsize=None)

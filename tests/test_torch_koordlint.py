@@ -51,16 +51,22 @@ _PORT_READS = (
 )
 
 
+# subpackages the port has not ported yet: a reference module's imports of
+# them stay bound to the reference (the cases run on the port use none)
+_REFERENCE_ONLY = ("manager",)
+
+
 @functools.lru_cache(maxsize=None)
 def rebound(name: str, package: str) -> types.ModuleType:
     """The reference test module ``tests/<name>.py`` bound to ``package``.
 
     Its fixtures become plain functions (``run_case`` drives them), and
     ``from test_x import ...`` takes the names from ``test_x`` bound to
-    the same package.  For the port, every ``koordinator_tpu.`` import
-    points at the port, ``pb2`` at the port's codec, the repo reads above
-    at the port's files, and every entry point that takes a device is
-    given ``device="cpu"``."""
+    the same package.  For the port, every ``koordinator_tpu`` import
+    points at the port (but those of ``_REFERENCE_ONLY``), ``pb2`` at the
+    port's codec, ``jax.numpy`` at ``torch``, the repo reads above at the
+    port's files, and every entry point that takes a device is given
+    ``device="cpu"``."""
     path = TESTS / f"{name}.py"
     src = path.read_text()
     src = re.sub(r"(?m)^\s*@pytest\.fixture.*\n", "", src)
@@ -73,6 +79,10 @@ def rebound(name: str, package: str) -> types.ModuleType:
         for pattern, repl in _PORT_READS:
             src = pattern.sub(repl, src)
         src = src.replace("koordinator_tpu.", "koordinator_tpu_torch.")
+        src = src.replace("from koordinator_tpu import", "from koordinator_tpu_torch import")
+        src = src.replace("import jax.numpy as jnp", "import torch as jnp")
+        for name in _REFERENCE_ONLY:
+            src = src.replace(f"koordinator_tpu_torch.{name}.", f"koordinator_tpu.{name}.")
         src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(_ON_CPU), r"_on_cpu(\1)(", src)
     module = types.ModuleType(f"{name}__{package}")
     module.__file__ = str(path)
@@ -89,26 +99,32 @@ def rebound(name: str, package: str) -> types.ModuleType:
 
 
 def run_case(module, cls, method, package, **given):
-    """One test method of a rebound reference module.  Each parameter is
+    """One test method of a rebound reference module (a module-level test
+    function when ``cls`` is empty).  Each parameter is
     taken from ``given`` (pytest's own fixtures), else from the class's or
-    the module's fixture of that name, a generator run to its yield and
+    the module's fixture of that name, called with its own parameters
+    resolved the same way; a generator fixture runs to its yield and is
     closed after the case."""
     mod = rebound(module, package)
-    instance = getattr(mod, cls)()
-    fn = getattr(instance, method)
-    kwargs, open_fixtures = {}, []
-    try:
-        for name in inspect.signature(fn).parameters:
+    instance = getattr(mod, cls)() if cls else None
+    fn = getattr(instance, method) if cls else getattr(mod, method)
+    open_fixtures = []
+
+    def resolve(fixture):
+        kwargs = {}
+        for name in inspect.signature(fixture).parameters:
             if name in given:
                 kwargs[name] = given[name]
                 continue
-            value = getattr(instance, name, None) or getattr(mod, name)
-            value = value()
+            value = resolve(getattr(instance, name, None) or getattr(mod, name))
             if inspect.isgenerator(value):
                 open_fixtures.append(value)
                 value = next(value)
             kwargs[name] = value
-        fn(**kwargs)
+        return fixture(**kwargs)
+
+    try:
+        resolve(fn)
     finally:
         for gen in reversed(open_fixtures):
             next(gen, None)
@@ -317,8 +333,11 @@ class TestReadbackThroughACall:
     def test_the_port_raw_pass_flags_the_assign_cycle_and_the_tag_holds(self):
         raw = [v for v in run_repo(root=REPO, rules=["lock-held-dispatch"],
                                    honor_suppressions=False)]
-        assert [(v.path, "run_cycle(), reaching torch.cuda.synchronize()" in v.message)
-                for v in raw] == [(f"{PORT}/bridge/server.py", True)]
+        # the second is the host-only npz index the metric cache builds
+        # under its lock, tagged as in the reference
+        assert sorted((v.path, "run_cycle(), reaching torch.cuda.synchronize()" in v.message)
+                      for v in raw) == [(f"{PORT}/bridge/server.py", True),
+                                        (f"{PORT}/koordlet/metriccache.py", False)]
         assert run_repo(root=REPO, rules=["lock-held-dispatch"]) == []
 
 
