@@ -213,6 +213,13 @@ Phases (any failure raises and exits non-zero, printing no result):
     ``greedy_assign`` on the same tables, no demotion and no other kernel
     (the report pass, adapt plus encode and the cycle timed), and at the
     anchor recipe the card's digest against ``KOORDLET_ANCHOR_SHA256``;
+    the trees, the hook socket and the daemon's node live under a
+    memory-backed directory (``memory_backed_dir``: the temporary directory
+    or ``/dev/shm`` when ``stat -f`` calls it ``tmpfs``), as a node's sysfs
+    does, and the line records the filesystem type; ``/dev/shm`` is the one
+    path outside the checkout, ``HOME`` and the temporary directory that
+    the script writes, under a ``koord-smoke-<pid>-`` name, and each run
+    first removes such directories whose process has ended;
     (d) every placed GPU pod that passed Reserve: its PreBind
     ``device-allocated`` annotation through PreCreateContainer in the CRI
     proxy (hooks in a koordlet process behind ``RemoteHookRegistry``), the
@@ -221,7 +228,37 @@ Phases (any failure raises and exits non-zero, printing no result):
     ``build_default_daemon`` over a temporary root whose ``/proc`` and
     cgroup counters advance between 16 fake-clock ticks, the tree's digest
     against ``KOORDLET_QOS_SHA256`` and ``/metrics`` answering
-    (``koordlet_launches`` on the ``kernels`` line).
+    (``koordlet_launches`` on the ``kernels`` line);
+21. (run before phase 10's lines) ``controlplane``: the co-location loop
+    around the scheduler (``harness/controlplane.py ControlPlaneLoop``) at
+    the headline (10,000 pods x 2,000 nodes, 16 tenants, seed 0): cycle A
+    (the LS/prod pods, every 20th LSE); 2,000 nodes' NodeMetrics from
+    ``NodeMetricReporter`` over seeded node, system and pod samples, each
+    node's informer holding the pods cycle A put there (some unreported,
+    some the pod list lacks); ``ManagerServer.reconcile_once`` (NodeMetric
+    specs, batch resources equal to ``batch_allocatable_batch`` on every
+    node with HP usage from the pod metrics, NodeSLOs, the profiles' root
+    quotas); the BE pods mutated by the
+    ClusterColocationProfile in process and 512 of them over HTTPS to
+    ``/mutate-pod`` and ``/validate-pod`` (each patch applied equal to the
+    in-process mutation; the certificate generator named; no openssl and
+    no ``cryptography`` fails the line); ``transform_cluster`` and cycle B
+    (the BE pods on the nodes' batch resources); one LowNodeLoad tick whose
+    ``MigrationController`` runs ``ReservationFirst``: reservations through
+    ``ReservationController``, cycle C placing the reserve pods off their
+    source nodes, a second reconcile evicting (no eviction before its
+    reservation is Available, evictions equal to the Succeeded jobs); then
+    ``ManagerServer`` and ``DeschedulerServer`` on lease files, elected,
+    one tick each, ``/healthz``, stopped with no thread left.  Each cycle
+    runs ``run_cycle`` on the card with the launch counts set to 0 around
+    it, exact against ``greedy_assign`` on the CPU (all five arrays), its
+    rung named; each leg's seconds, and the line fails past its 45 s
+    budget.  Then the sequential oracle (``harness/reference.py``): the
+    spark example's ``score_cycle`` on the card against ``ReferenceCycle``
+    (the reference's ``bench.py --config spark`` check) and the placements
+    of phase 3's cases that ``schedule_batch`` covers, each ``run_cycle``
+    counted (one launch, no demotion, exact against ``greedy_assign``) but
+    not the loop's (``controlplane_launches`` on the ``kernels`` line).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -3448,6 +3485,57 @@ def koordlet_daemon_leg(dev, tmp):
             "metrics": "/metrics answers 200 with koordlet_ticks_total"}
 
 
+def filesystem_type(path):
+    """What ``stat -f -c %T`` calls the filesystem under ``path``."""
+    out = subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True,
+                         timeout=30)
+    return out.stdout.strip() if out.returncode == 0 else f"unknown (stat exit {out.returncode})"
+
+
+MEMORY_DIR_PREFIX = "koord-smoke-"
+
+
+def memory_backed_dir():
+    """(directory, filesystem type): the temporary directory when it is a
+    ``tmpfs``, else ``/dev/shm`` when that is one, else the temporary
+    directory with the type it has.  A node's koordlet reads sysfs and
+    cgroup files that live in memory; so does the ``koordlet`` line."""
+    import os
+    import tempfile
+
+    tmp = tempfile.gettempdir()
+    for d in (tmp, "/dev/shm"):
+        if os.path.isdir(d) and os.access(d, os.W_OK) and filesystem_type(d) == "tmpfs":
+            return d, "tmpfs"
+    return tmp, filesystem_type(tmp)
+
+
+def reap_memory_dirs(parent):
+    """Remove the ``koord-smoke-<pid>-`` directories under ``parent`` whose
+    process has ended (a run killed at its time limit leaves its tree in
+    memory); returns how many went."""
+    import os
+    import shutil
+
+    reaped = 0
+    for name in os.listdir(parent):
+        if not name.startswith(MEMORY_DIR_PREFIX):
+            continue
+        pid = name[len(MEMORY_DIR_PREFIX):].split("-", 1)[0]
+        if not pid.isdigit():
+            continue
+        try:
+            os.kill(int(pid), 0)
+            continue  # its run is alive
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            continue  # a live process of another user
+        shutil.rmtree(os.path.join(parent, name), ignore_errors=True)
+        reaped += 1
+    return reaped
+
+
 def koordlet_phase(card, dev, counted, only):
     """The ``koordlet`` line (phase 20) and K2's launches on it."""
     import os
@@ -3456,7 +3544,11 @@ def koordlet_phase(card, dev, counted, only):
 
     from koordinator_tpu_torch.koordlet.runtimehooks import DEVICE_ALLOCATED_ANNOTATION
 
-    tmp = tempfile.mkdtemp(prefix="kl")
+    # the fleet's sysfs trees, the hook socket and the daemon's node tree
+    # on a memory-backed filesystem where the machine has one
+    parent, fs_type = memory_backed_dir()
+    reaped = reap_memory_dirs(parent)
+    tmp = tempfile.mkdtemp(prefix=f"{MEMORY_DIR_PREFIX}{os.getpid()}-", dir=parent)
     # the koordlet process of the hooks leg starts now, beside the fleet
     hook_path = os.path.join(tmp, "hook.sock")
     if len(hook_path) > UDS_PATH_MAX:
@@ -3496,8 +3588,164 @@ def koordlet_phase(card, dev, counted, only):
         if hook_proc.poll() is None:
             stop_hook_server(hook_proc)
         shutil.rmtree(tmp, ignore_errors=True)
-    line = {"card": card, "device": device, "native": native_line, "fleet": fleet_line,
+    line = {"card": card, "filesystem": {"parent": parent, "type": fs_type,
+                                         "reaped_stale_dirs": reaped},
+            "device": device, "native": native_line, "fleet": fleet_line,
             "hooks": hooks, "daemon": daemon, "legs_s": legs_s}
+    return line, launches
+
+
+# the controlplane line (phase 21)
+CONTROLPLANE_RECIPE = {"seed": 0, "pods": 10000, "nodes": 2000, "tenants": 16}
+CONTROLPLANE_SAMPLE = 512  # BE pods sent to the webhook over HTTPS
+CONTROLPLANE_BUDGET_S = 45.0
+# phase 3's cases whose features ReferenceCycle.schedule_batch covers (no
+# gangs, no extras, no aggregated or prod usage)
+ORACLE_CASES = ("loadaware_joint_1kx200", "quota_colocation_512x128", "most_allocated",
+                "loadaware_disabled", "scarce_capacity")
+
+
+def on_device(result, dev):
+    """``result`` with its five arrays moved to ``dev``."""
+    return dataclasses.replace(result, **{f: getattr(result, f).to(dev) for f in FIELDS})
+
+
+def oracle_leg(cases, dev, counted):
+    """The jax-free sequential oracle (``harness/reference.py``) on the
+    card's results: the spark example's ``score_cycle`` scores and
+    feasibility (the reference's ``bench.py --config spark`` check), and
+    ``run_cycle``'s placements on every case of ``ORACLE_CASES``, each
+    cycle through ``counted`` (one launch, no demotion, exact against
+    ``greedy_assign``)."""
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.harness.reference import ReferenceCycle
+    from koordinator_tpu_torch.model import resources as res
+    from koordinator_tpu_torch.model.snapshot import PriorityClass, estimate_pod
+    from koordinator_tpu_torch.solver import greedy_assign, run_cycle, score_cycle
+
+    by_name = {name: (snap, cfg) for name, snap, cfg, xm, xs in cases}
+    t0 = time.perf_counter()
+    nodes, pods, _, _ = g.spark_colocation()
+    snap = by_name["spark_colocation"][0]
+    scores, feasible = (t.cpu() for t in score_cycle(snap))
+    oracle = ReferenceCycle(
+        [res.resource_vector(n["allocatable"]) for n in nodes],
+        [[0] * res.NUM_RESOURCES for _ in nodes],
+        [res.resource_vector(n.get("usage", {})) for n in nodes],
+        [bool(n.get("metric_fresh", True)) for n in nodes])
+    pairs = 0
+    for p, pod in enumerate(pods):
+        req = res.resource_vector(pod["requests"])
+        est = estimate_pod(req, res.resource_vector(pod.get("limits", {})),
+                           PriorityClass.from_name(pod.get("priority_class")))
+        for n in range(len(nodes)):
+            ok = oracle.fit_ok(n, req) and oracle.loadaware_filter_ok(n)
+            if (int(scores[p, n]) != oracle.combined_score(n, req, est)
+                    or bool(feasible[p, n]) != ok):
+                raise AssertionError(f"oracle spark: pod {p} node {n} differs from "
+                                     "ReferenceCycle")
+            pairs += 1
+    line = {"spark": {"pairs": pairs, "score_cycle": "scores and feasibility equal to "
+                      "ReferenceCycle", "ms": (time.perf_counter() - t0) * 1e3}}
+    for name in ORACLE_CASES:
+        snap, cfg = by_name[name]
+        t0 = time.perf_counter()
+        cpu = map_snapshot(snap, lambda t: t.cpu())
+        got, counts = counted(f"oracle {name}", on_device(greedy_assign(cpu, cfg), dev),
+                              lambda: run_cycle(snap, cfg))
+        if sum(counts.values()) != 1:
+            raise AssertionError(f"oracle {name}: launches {counts}")
+        n, P = int(snap.nodes.valid.sum()), int(snap.pods.valid.sum())
+        q = cpu.quotas
+        nq = int(q.valid.sum())
+        cyc = ReferenceCycle(
+            cpu.nodes.allocatable[:n].tolist(), cpu.nodes.requested[:n].tolist(),
+            cpu.nodes.usage[:n].tolist(), cpu.nodes.metric_fresh[:n].tolist(), cfg=cfg,
+            quota_runtime={i: q.runtime[i].tolist() for i in range(nq)},
+            quota_used={i: q.used[i].tolist() for i in range(nq)},
+            quota_limited={i: q.limited[i].tolist() for i in range(nq)})
+        want = cyc.schedule_batch(cpu.pods.requests[:P].tolist(), cpu.pods.estimated[:P].tolist(),
+                                  priorities=cpu.pods.priority[:P].tolist(),
+                                  quota_ids=cpu.pods.quota_id[:P].tolist())
+        if got.assignment[:P].tolist() != want:
+            raise AssertionError(f"oracle {name}: placements differ from "
+                                 "ReferenceCycle.schedule_batch")
+        line[name] = {"pods": P, "nodes": n, "placed": sum(1 for a in want if a >= 0),
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "ms": (time.perf_counter() - t0) * 1e3}
+    return line
+
+
+def controlplane_phase(card, dev, counted, cases):
+    """The ``controlplane`` line (phase 21): the co-location loop of
+    ``harness/controlplane.py`` at the headline, each of its cycles on the
+    kernel ladder held against the plain cycle on the CPU, its daemons,
+    and the sequential oracle.  Returns (line, launches by kernel)."""
+    import os
+    import shutil
+    import tempfile
+
+    from koordinator_tpu_torch.harness import controlplane as cp
+    from koordinator_tpu_torch.solver import greedy_assign, run_cycle
+
+    if cp.cert_generator() == "openssl" and shutil.which("openssl") is None:
+        raise AssertionError("controlplane webhook: neither the cryptography package nor the "
+                             "openssl command is here; the webhook cannot make its certificates")
+    wall = time.perf_counter()
+    launches = {"cycle_dense": 0, "cycle_wide": 0, "wave_cycle": 0}
+    cycles = {}
+
+    def cycle(name, snap, extra_mask=None):
+        snap_cpu = map_snapshot(snap, lambda t: t.cpu())
+        t0 = time.perf_counter()
+        want = greedy_assign(snap_cpu, extra_mask=None if extra_mask is None
+                             else extra_mask.cpu())
+        plain_s = time.perf_counter() - t0
+        out, counts = counted(f"controlplane cycle {name}", on_device(want, dev),
+                              lambda: run_cycle(snap, extra_mask=extra_mask))
+        rungs = [k for k, v in counts.items() if v]
+        if sum(counts.values()) != 1:
+            raise AssertionError(f"controlplane cycle {name}: launches {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        cycles[name] = {"pods": int(snap.pods.valid.sum()), "rung": rungs[0],
+                        "launches": counts[rungs[0]], "plain_cpu_s": plain_s,
+                        "parity": "all five arrays equal to greedy_assign on the CPU"}
+        return out
+
+    legs_s = {}
+    tmp = tempfile.mkdtemp(prefix="cp")
+    try:
+        loop = cp.ControlPlaneLoop(cp.port_impl(dev), tmp, now=time.time(), cycle=cycle,
+                                   **CONTROLPLANE_RECIPE)
+        line = {"card": card, "recipe": f"quota_colocation{CONTROLPLANE_RECIPE}"}
+        for step in ("cycle_a", "node_metrics", "manager", "webhook", "cycle_b",
+                     "deschedule"):
+            t0 = time.perf_counter()
+            line[step] = (loop.webhook(CONTROLPLANE_SAMPLE) if step == "webhook"
+                          else getattr(loop, step)())
+            legs_s[step] = time.perf_counter() - t0
+        if line["deschedule"]["evicted"] < 1:
+            raise AssertionError("controlplane: the migration evicted nothing")
+        t0 = time.perf_counter()
+        line["servers"] = cp.servers_leg(cp.port_impl(dev), tmp, loop.view,
+                                         loop.placed_node_dicts)
+        legs_s["servers"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["cycles"] = cycles
+    line["wall_s"] = time.perf_counter() - wall
+    line["budget_s"] = CONTROLPLANE_BUDGET_S
+    line["legs_s"] = legs_s
+    if line["wall_s"] > CONTROLPLANE_BUDGET_S:
+        raise AssertionError(f"controlplane: the loop took {line['wall_s']:.1f} s, over its "
+                             f"{CONTROLPLANE_BUDGET_S} s budget (legs {legs_s})")
+    # the oracle's launches compare: they are not the loop's
+    t0 = time.perf_counter()
+    line["oracle"] = oracle_leg(cases, dev, counted)
+    line["oracle_s"] = time.perf_counter() - t0
+    if os.path.exists(tmp):
+        raise AssertionError(f"controlplane: {tmp} left behind")
     return line, launches
 
 
@@ -3873,24 +4121,31 @@ def main() -> int:
     print(json.dumps({"koordlet": koordlet_line}))
     phase_done("20_koordlet")
 
+    # phase 21: the co-location control loop around the scheduler
+    controlplane_line, controlplane_launches = controlplane_phase(card, dev, counted, cases)
+    print(json.dumps({"controlplane": controlplane_line}))
+    phase_done("21_controlplane")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
     lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint",
-             "koordlet")
+             "koordlet", "controlplane")
+    cp_n = controlplane_launches
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
-         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0), k1_err, k1_ms, k1_plain_ms, k1_bound,
-         k1_bound_by),
+         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0, cp_n["cycle_dense"]), k1_err, k1_ms,
+         k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
          (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
-          k2_tree, k2_preempt, k2_lint, k2_koordlet), k2_err, k2_ms, k2_plain_ms, k2_bound,
-         k2_bound_by),
+          k2_tree, k2_preempt, k2_lint, k2_koordlet, cp_n["cycle_wide"]), k2_err, k2_ms,
+         k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
-         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches, (0, 0, 0, 0, 0, 0, 0, 0, 0),
-         k3_err, k3_ms, k3_plain_ms, k3_bound, k3_bound_by),
+         "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches,
+         (0, 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
+         k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

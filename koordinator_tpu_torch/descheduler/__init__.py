@@ -1,5 +1,4 @@
-"""Descheduler: the LowNodeLoad rebalance leg of koord-descheduler
-(reference ``pkg/descheduler``).
+"""Descheduler analog of koord-descheduler (reference ``pkg/descheduler``).
 
 Modules
 -------
@@ -11,9 +10,14 @@ Modules
 - ``lownodeload`` — the LowNodeLoad Balance plugin: utilization
                     classification + eviction planning (reference
                     ``framework/plugins/loadaware/low_node_load.go``).
-
-The migration controller, the runtime, the k8s plugins and the server are
-not ported yet (ROADMAP Queue A item 15).
+- ``migration``   — PodMigrationJob controller state machine + arbitration
+                    (reference ``controllers/migration``).
+- ``k8s_plugins`` — the upstream deschedule plugins the runtime registers
+                    (reference ``framework/plugins/kubernetes``).
+- ``runtime``     — profiles, the plugin framework and the ticking loop
+                    (reference ``framework/runtime``, ``descheduler.go``).
+- ``server``      — the leader-elected koord-descheduler daemon
+                    (reference ``cmd/koord-descheduler/app/server.go``).
 """
 
 from koordinator_tpu_torch.descheduler.anomaly import BasicDetector, State  # noqa: F401

@@ -14,38 +14,10 @@ from __future__ import annotations
 import functools
 from typing import Callable, Mapping, Sequence
 
+from koordinator_tpu_torch.manager.noderesource import priority_class_of
 from koordinator_tpu_torch.model import resources as res
 
 CompareFn = Callable[[Mapping, Mapping], int]
-
-PRIORITY_PROD = "koord-prod"
-PRIORITY_MID = "koord-mid"
-PRIORITY_BATCH = "koord-batch"
-PRIORITY_FREE = "koord-free"
-
-# Priority value bands (reference apis/extension/priority.go:38-49).
-PRIORITY_BANDS = {
-    PRIORITY_PROD: (9000, 9999),
-    PRIORITY_MID: (7000, 7999),
-    PRIORITY_BATCH: (5000, 5999),
-    PRIORITY_FREE: (3000, 3999),
-}
-
-
-def priority_class_of(pod: Mapping) -> str:
-    """reference ``extension.GetPodPriorityClassWithDefault``: explicit
-    priority-class label wins, else derive from the numeric priority band,
-    else prod (HP) by default.  (The reference package keeps it in
-    ``manager/noderesource.py``, which is not ported.)"""
-    pc = pod.get("priority_class", "")
-    if pc in PRIORITY_BANDS:
-        return pc
-    prio = pod.get("priority")
-    if prio is not None:
-        for name, (lo, hi) in PRIORITY_BANDS.items():
-            if lo <= int(prio) <= hi:
-                return name
-    return PRIORITY_PROD
 
 # ascending eviction preference: free evicted before batch before mid before prod
 _PRIORITY_CLASS_RANK = {"koord-free": 0, "koord-batch": 1, "koord-mid": 2, "koord-prod": 3}

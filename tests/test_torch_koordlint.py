@@ -51,9 +51,18 @@ _PORT_READS = (
 )
 
 
-# subpackages the port has not ported yet: a reference module's imports of
-# them stay bound to the reference (the cases run on the port use none)
-_REFERENCE_ONLY = ("manager",)
+# entry points beside ``_ON_CPU`` that take a device: the port binding runs
+# them on the CPU
+_PORT_ON_CPU = ("SchedulerServer",)
+
+# edits a reference module needs to run on the port, each a stated
+# difference (ROADMAP Queue C): ``torch.full`` takes its dtype by keyword,
+# where ``jnp.full`` takes it third
+_PORT_EDITS = {
+    "test_e2e_smoke": (
+        ("POLICY_SINGLE_NUMA_NODE, jnp.int32", "POLICY_SINGLE_NUMA_NODE, dtype=jnp.int32"),
+    ),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,10 +72,10 @@ def rebound(name: str, package: str) -> types.ModuleType:
     Its fixtures become plain functions (``run_case`` drives them), and
     ``from test_x import ...`` takes the names from ``test_x`` bound to
     the same package.  For the port, every ``koordinator_tpu`` import
-    points at the port (but those of ``_REFERENCE_ONLY``), ``pb2`` at the
-    port's codec, ``jax.numpy`` at ``torch``, the repo reads above at the
-    port's files, and every entry point that takes a device is given
-    ``device="cpu"``."""
+    points at the port, ``pb2`` at the port's codec, ``jax.numpy`` at
+    ``torch``, the repo reads above at the port's files, the module's
+    ``_PORT_EDITS`` made, and every entry point that takes a device is
+    given ``device="cpu"``."""
     path = TESTS / f"{name}.py"
     src = path.read_text()
     src = re.sub(r"(?m)^\s*@pytest\.fixture.*\n", "", src)
@@ -81,9 +90,11 @@ def rebound(name: str, package: str) -> types.ModuleType:
         src = src.replace("koordinator_tpu.", "koordinator_tpu_torch.")
         src = src.replace("from koordinator_tpu import", "from koordinator_tpu_torch import")
         src = src.replace("import jax.numpy as jnp", "import torch as jnp")
-        for name in _REFERENCE_ONLY:
-            src = src.replace(f"koordinator_tpu_torch.{name}.", f"koordinator_tpu.{name}.")
-        src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(_ON_CPU), r"_on_cpu(\1)(", src)
+        for before, after in _PORT_EDITS.get(name, ()):
+            assert before in src, (name, before)
+            src = src.replace(before, after)
+        src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(_ON_CPU + _PORT_ON_CPU),
+                     r"_on_cpu(\1)(", src)
     module = types.ModuleType(f"{name}__{package}")
     module.__file__ = str(path)
     module._on_cpu = lambda fn: functools.partial(fn, device="cpu")
