@@ -259,6 +259,38 @@ Phases (any failure raises and exits non-zero, printing no result):
     of phase 3's cases that ``schedule_batch`` covers, each ``run_cycle``
     counted (one launch, no demotion, exact against ``greedy_assign``) but
     not the loop's (``controlplane_launches`` on the ``kernels`` line).
+22. (run before phase 10's lines) ``failover``: the reference's
+    ``bench.py --config failover`` at the headline, every daemon a
+    ``python -m koordinator_tpu_torch.scheduler.server`` process on the card
+    (``harness/failover.py failover_leg``, sockets under the memory-backed
+    directory, ``--kernel-build-dir`` the package's build directory): a
+    journaled leader and a follower, the 3.04 MB full Sync and 8 delta
+    Syncs (pairs that bump and restore one node's usage), a storm of 4
+    threads of flat Scores (k = 8) on the follower; leg A SIGKILLs the
+    leader and restarts it on its state directory (the journal replays onto
+    the same chain), leg B SIGKILLs it again and promotes the follower with
+    SIGUSR2.  ``warm_restart_ms`` and ``failover_ms`` with their splits
+    (spawn to imports, CUDA context, journal replay, server start, first
+    acknowledged Sync; kill to reaped, signal to promoted), the journal's
+    replay and append times, the follower's resyncs and the storm's reads.
+    After each recovery two Assigns, a no-change Sync between them: both
+    equal phase 4's ``run_cycle(snap)`` in all five arrays (each daemon's
+    ``/debug/last-cycle`` digests) and the second builds nothing, demotes
+    nothing and launches K2 once (the daemons' own launch counts, on the
+    ``kernels`` line as ``failover_launches``); no process is left, and the
+    line fails past its 60 s budget;
+23. (run before phase 10's lines) ``coldstart``: the reference's
+    ``bench.py --config coldstart`` at the headline: two daemon processes
+    on one state directory and one new kernel build directory under the
+    package's ``_build/``, the first with nothing built and no prewarm
+    record, the second with ``--prewarm`` replaying what the first recorded;
+    spawn to the first served flat Score and to the first served Assign
+    (where K2's ``nvcc`` build sits) of each, the second's prewarm status,
+    the Score and Assign reply digests equal between the boots; then the
+    two boots fail past their 60 s budget; then, as the ``controlplane``
+    line's oracle after its budget, the serial and the pipelined cold
+    candidate builds at the ``sparse`` line's scale point (2^21 nodes x 512
+    pods, width 256), byte-equal (``coldstart_launches``).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -2105,34 +2137,6 @@ def daemon_deltas(kw, count, seed):
         yield {k: cur[k] for k in ("node_requested", "node_usage", "pod_requests")}, changes
 
 
-def raw_call(path, method, payload, timeout=300):
-    """(status, payload) of one raw-framing call on a fresh connection."""
-    import socket
-    import struct
-
-    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-    conn.settimeout(timeout)
-    try:
-        conn.connect(path)
-        conn.sendall(struct.pack(">BI", method, len(payload)) + payload)
-        head = b""
-        while len(head) < 5:
-            chunk = conn.recv(5 - len(head))
-            if not chunk:
-                raise AssertionError(f"{path} closed the connection")
-            head += chunk
-        status, length = struct.unpack(">BI", head)
-        body = bytearray()
-        while len(body) < length:
-            chunk = conn.recv(min(length - len(body), 1 << 22))
-            if not chunk:
-                raise AssertionError(f"{path} closed the connection")
-            body.extend(chunk)
-        return status, bytes(body)
-    finally:
-        conn.close()
-
-
 def wait_for(name, predicate, timeout_s=120.0):
     """Seconds until ``predicate()`` held; fails the run past ``timeout_s``."""
     t0 = time.perf_counter()
@@ -2162,6 +2166,7 @@ def daemon_phase(card, dev, lists, headline, snap):
     from koordinator_tpu_torch.bridge.udsserver import (
         METHOD_ASSIGN, METHOD_PROFILE, METHOD_SCORE, METHOD_SYNC,
     )
+    from koordinator_tpu_torch.harness.failover import raw_call
     from koordinator_tpu_torch.replication import codec
     from koordinator_tpu_torch.replication.follower import promote_replica
     from koordinator_tpu_torch.scheduler.server import SchedulerServer
@@ -2967,6 +2972,11 @@ def preempt_phase(card, dev, extras_state):
     return line, only_k2("preempt", line["launches"])
 
 
+# the device-discipline rules, which the lint line also times alone
+DEVICE_RULES = ("donation-safety", "retrace-hazard", "host-sync-in-jit",
+                "unregistered-jit-boundary", "prewarm-drift")
+
+
 def lint_phase(card, dev, unwitnessed):
     """The ``lint`` line (phase 19): (a) koordlint over the checked-out port
     and this script (``koordinator_tpu_torch/analysis``): every rule, no
@@ -2983,7 +2993,7 @@ def lint_phase(card, dev, unwitnessed):
     import torch
 
     from koordinator_tpu_torch.analysis import RULES, lockgraph, suppressions
-    from koordinator_tpu_torch.analysis.core import scanned_files
+    from koordinator_tpu_torch.analysis.core import run_repo, scanned_files
     from koordinator_tpu_torch.harness.anchor import CHAOS_ANCHOR_CFG, CHAOS_ANCHOR_SHA256
     from koordinator_tpu_torch.obs import lockwitness
 
@@ -2996,6 +3006,12 @@ def lint_phase(card, dev, unwitnessed):
     if findings or lint.problems:
         raise AssertionError("lint: " + "; ".join(
             v.format() for v in findings + lint.problems))
+    # the device-discipline rules alone, timed apart
+    t0 = time.perf_counter()
+    device_found = run_repo(root=root, rules=list(DEVICE_RULES))
+    device_s = time.perf_counter() - t0
+    if device_found:
+        raise AssertionError("lint: " + "; ".join(v.format() for v in device_found))
     live = {}
     for tag in tags:
         live[tag.rule] = live.get(tag.rule, 0) + 1
@@ -3005,6 +3021,7 @@ def lint_phase(card, dev, unwitnessed):
         "live_tags": len(tags), "live_tags_by_rule": live, "stale_tags": 0,
         "tags_without_reason": 0, "locks": len(graph.locks), "edges": len(graph.edges),
         "cycles": len(lockgraph.find_cycles(graph)), "seconds": static_s,
+        "device_rules": list(DEVICE_RULES), "device_rules_seconds": device_s,
         "note": "suppressions.lint_pass: one unsuppressed pass over the tree and one "
                 "lock graph give the findings, the tags and the audit",
     }}
@@ -3749,6 +3766,136 @@ def controlplane_phase(card, dev, counted, cases):
     return line, launches
 
 
+FAILOVER_BUDGET_S = 60.0
+COLDSTART_BUDGET_S = 60.0
+
+
+def failover_phase(card, lists, headline):
+    """The ``failover`` line (phase 22) and each kernel's launches in its
+    daemon processes."""
+    import os
+    import shutil
+    import tempfile
+
+    from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.harness import failover
+    from koordinator_tpu_torch.harness.anchor import cycle_digest, result_digests
+
+    P, N, Q = len(lists[1]), len(lists[0]), len(lists[3])
+    want = {"digests": result_digests(headline, P, N, Q),
+            "assign": cycle_digest(headline.assignment[:P].cpu(), headline.status[:P].cpu())}
+    parent, fs = memory_backed_dir()
+    base = tempfile.mkdtemp(prefix=f"{MEMORY_DIR_PREFIX}{os.getpid()}-f", dir=parent)
+    try:
+        line = failover.failover_leg(base, lists, want, kernel_build_dir=str(_build.BUILD_DIR))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    if line["wall_s"] > FAILOVER_BUDGET_S:
+        raise AssertionError(f"failover: the line took {line['wall_s']:.1f} s, over its "
+                             f"{FAILOVER_BUDGET_S} s budget")
+    launches = {k: line["leg_a_assign"]["launches"][k] + line["leg_b_assign"]["launches"][k]
+                for k in line["leg_a_assign"]["launches"]}
+    if launches["cycle_wide"] != sum(launches.values()) or launches["cycle_wide"] != 4:
+        raise AssertionError(f"failover: the recovered daemons launched {launches}")
+    line.update(card=card, filesystem=fs, budget_s=FAILOVER_BUDGET_S, launches=launches,
+                snapshot=f"quota_colocation {P} pods x {N} nodes, 16 tenants, seed 0",
+                parity="both recovered daemons' Assigns equal phase 4's run_cycle(snap) in "
+                       "all five arrays")
+    return line, launches
+
+
+def coldstart_phase(card, dev):
+    """The ``coldstart`` line (phase 23) and each kernel's launches in its
+    daemon processes."""
+    import os
+    import shutil
+    import tempfile
+
+    from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import failover, generators as g
+    from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
+
+    lists = g.quota_colocation()
+    parent, fs = memory_backed_dir()
+    base = tempfile.mkdtemp(prefix=f"{MEMORY_DIR_PREFIX}{os.getpid()}-c", dir=parent)
+    build_dir = os.path.join(str(_build.BUILD_DIR), f"coldstart-{os.getpid()}")
+    try:
+        line = failover.coldstart_leg(base, lists, build_dir=build_dir)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(build_dir, ignore_errors=True)
+    cold, warm = line["cold"], line["warm"]
+    if not cold["build_dir_files"] or warm["prewarm"]["total"] < 1 or warm["prewarm"][
+            "failed"] or warm["prewarm"]["compiled"] != warm["prewarm"]["total"]:
+        raise AssertionError(f"coldstart: built {cold['build_dir_files']}, "
+                             f"prewarm {warm['prewarm']}")
+    launches = {k: cold["launches"][k] + warm["launches"][k] for k in cold["launches"]}
+    if launches["cycle_wide"] != sum(launches.values()) or launches["cycle_wide"] != 2:
+        raise AssertionError(f"coldstart: the boots launched {launches}")
+    line.update(card=card, filesystem=fs, budget_s=COLDSTART_BUDGET_S, launches=launches,
+                snapshot="quota_colocation 10000 pods x 2000 nodes, 16 tenants, seed 0")
+    if line["wall_s"] > COLDSTART_BUDGET_S:
+        raise AssertionError(f"coldstart: the two boots took {line['wall_s']:.1f} s, over "
+                             f"their {COLDSTART_BUDGET_S} s budget")
+    # the reference's third leg, in this process at the sparse line's scale
+    # point (after the budget, as the controlplane line's oracle)
+    t0 = time.perf_counter()
+    width = 256
+    big = snapshot_from_numpy(g.sparse_leaves(1 << 21, 512, n_open=width // 2, seed=16),
+                              device=dev)
+    line["candidate_build"] = {"nodes": big.nodes.capacity, "pods": big.pods.capacity,
+                               "width": width, **failover.candidate_build_leg(
+                                   big, CycleConfig(candidate_width=width))}
+    del big
+    line["candidate_build"]["leg_s"] = time.perf_counter() - t0
+    return line, launches
+
+
+ONLY_LINES = ("failover", "coldstart")
+
+
+def only_lines(names) -> int:
+    """``python3 chip_smoke.py --only failover,coldstart``: the daemon-process
+    lines alone, after the card line, K2's build and phase 4's headline
+    ``run_cycle(snap)`` (exact against ``greedy_assign``), which the
+    ``failover`` line holds its recovered daemons to."""
+    import torch
+
+    from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.solver import dense, greedy_assign, run_cycle
+
+    unknown = set(names) - set(ONLY_LINES)
+    if unknown:
+        print(f"chip_smoke: --only takes {','.join(ONLY_LINES)}, not {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    phase_s = {}
+    t0 = time.perf_counter()
+    _build.build(dense.KERNEL_SOURCE)
+    snap, *cluster_lists, _ = g.quota_colocation_snapshot(device=torch.device("cuda"))
+    result = run_cycle(snap)
+    assert_same("headline", result, greedy_assign(snap))
+    phase_s["headline"] = time.perf_counter() - t0
+    for name in names:
+        t0 = time.perf_counter()
+        if name == "failover":
+            line, _ = failover_phase(card, cluster_lists, result)
+        else:
+            line, _ = coldstart_phase(card, torch.device("cuda"))
+        print(json.dumps({name: line}))
+        phase_s[name] = time.perf_counter() - t0
+    print(json.dumps({"phase_seconds": phase_s}))
+    print(card_line())
+    print(json.dumps({"ok": True, "only": list(names), "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3756,6 +3903,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        return only_lines(sys.argv[2].split(","))
 
     from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.harness import generators as g
@@ -4126,25 +4275,39 @@ def main() -> int:
     print(json.dumps({"controlplane": controlplane_line}))
     phase_done("21_controlplane")
 
+    # phase 22: the journal warm restart and the promotion, daemons in processes
+    failover_line, failover_launches = failover_phase(card, cluster_lists, result)
+    print(json.dumps({"failover": failover_line}))
+    phase_done("22_failover")
+
+    # phase 23: cold and prewarmed boots, and the cold candidate builds
+    coldstart_line, coldstart_launches = coldstart_phase(card, dev)
+    print(json.dumps({"coldstart": coldstart_line}))
+    phase_done("23_coldstart")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
     lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint",
-             "koordlet", "controlplane")
+             "koordlet", "controlplane", "failover", "coldstart")
     cp_n = controlplane_launches
+    fo_n, cs_n = failover_launches, coldstart_launches
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
-         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0, cp_n["cycle_dense"]), k1_err, k1_ms,
+         (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0, cp_n["cycle_dense"],
+          fo_n["cycle_dense"], cs_n["cycle_dense"]), k1_err, k1_ms,
          k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
          (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
-          k2_tree, k2_preempt, k2_lint, k2_koordlet, cp_n["cycle_wide"]), k2_err, k2_ms,
+          k2_tree, k2_preempt, k2_lint, k2_koordlet, cp_n["cycle_wide"], fo_n["cycle_wide"],
+          cs_n["cycle_wide"]), k2_err, k2_ms,
          k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches,
-         (0, 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
+         (0, 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"], fo_n["wave_cycle"],
+          cs_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
          k3_bound_by),
     )
     print(json.dumps({"kernels": [{

@@ -104,6 +104,14 @@ class SourceFile:
         self.text = text
         self.tree = ast.parse(text, filename=path)
         self.suppressions = parse_suppressions(text)
+        self._nodes: Optional[List[ast.AST]] = None
+
+    @property
+    def nodes(self) -> List[ast.AST]:
+        """Every node of the tree, walked once for all the rules."""
+        if self._nodes is None:
+            self._nodes = list(ast.walk(self.tree))
+        return self._nodes
 
     def suppressed(self, rule: str, line: int) -> bool:
         # the offending line, or a dedicated comment line just above it
@@ -130,9 +138,13 @@ def run_rules_on_source(
     annotations."""
     from koordinator_tpu_torch.analysis import (
         bareretry,
+        devbound,
+        donation,
         excepts,
         guards,
+        hostsync,
         lockdispatch,
+        retrace,
         spanleak,
         unboundedwait,
     )
@@ -150,12 +162,16 @@ def run_rules_on_source(
         ]
     out: List[Violation] = []
     table = {
+        "donation-safety": donation.check,
+        "retrace-hazard": retrace.check,
+        "host-sync-in-jit": hostsync.check,
         "broad-except": excepts.check,
         "span-leak": spanleak.check,
         "lock-held-dispatch": lockdispatch.check,
         "bare-retry": bareretry.check,
         "unbounded-wait": unboundedwait.check,
         "unguarded-shared-state": guards.check,
+        "unregistered-jit-boundary": devbound.check,
     }
     for rule, fn in table.items():
         if rules is not None and rule not in rules:
@@ -213,7 +229,8 @@ def run_repo(
 ) -> List[Violation]:
     """The full pass: AST rules over every Python file of the port and
     ``chip_smoke.py``, plus the cross-language wire-contract diff, the
-    metrics-vs-doc table diff and the whole-program passes over the lock
+    metrics-vs-doc table diff, the boundaries-vs-prewarm-tables diff and
+    the whole-program passes over the lock
     graph (cycles, LOCKORDER.md drift, and lock-held-dispatch through
     calls).  ``graph``: the lock graph of ``root`` where the caller
     already built it (``suppressions.lint_pass``).  Returns sorted
@@ -222,6 +239,7 @@ def run_repo(
         lockdispatch,
         lockgraph,
         metricsdoc,
+        prewarmdrift,
         wire_contract,
     )
 
@@ -236,6 +254,9 @@ def run_repo(
     if rules is None or "metrics-doc-drift" in rules:
         out.extend(_filter_file_comments(
             root, metricsdoc.check_repo(root), honor_suppressions))
+    if rules is None or "prewarm-drift" in rules:
+        out.extend(_filter_file_comments(
+            root, prewarmdrift.check_repo(root), honor_suppressions))
     graph_rules = {lockgraph.CYCLE_RULE, lockgraph.DRIFT_RULE,
                    lockdispatch.RULE}
     if rules is None or graph_rules & set(rules):

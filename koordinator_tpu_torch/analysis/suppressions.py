@@ -8,7 +8,10 @@ with file:line, rule and reason.  Two conditions fail the audit:
   unguarded-shared-state suppress *races/eaten errors*, so the
   annotation must say why the hazard is not real; lock-held-dispatch
   marks a readback that stalls every queued launch, so the tag must
-  say why this one may) carry a parenthesised reason;
+  say why this one may; unregistered-jit-boundary, host-sync-in-jit and
+  donation-safety mark a launch the ledger misses, a device wait and a
+  write in-flight launches may see, so the tag cites the ROADMAP entry
+  that accounts for it) carry a parenthesised reason;
 * **stale** — the suppressed rule no longer fires on the annotated
   line (the raw, unsuppressed pass finds nothing there): the code
   moved or was fixed, and a tag pinned to nothing will silently
@@ -39,6 +42,7 @@ RULE = "suppression-audit"
 # rules whose suppressions MUST carry a reason
 REASON_REQUIRED = frozenset((
     "broad-except", "unguarded-shared-state", "lock-held-dispatch",
+    "unregistered-jit-boundary", "host-sync-in-jit", "donation-safety",
 ))
 
 

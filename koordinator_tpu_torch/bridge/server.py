@@ -262,6 +262,9 @@ class ScorerServicer:
         # Assign result memo: (snapshot id, CycleConfig) -> _AssignMemo,
         # cleared atomically with every generation bump
         self._assign_memo = {}
+        # the last computed Assign's CycleResult (device tensors), for the
+        # daemon's /debug/last-cycle digests
+        self.last_cycle = None
         self._score_memo = ScoreMemo() if score_memo else None
         self._score_incr = bool(score_incr)
         if score_incr_max_ratio is None:
@@ -1105,6 +1108,7 @@ class ScorerServicer:
             return res_.scores, res_.feasible
         scores, feasible = res_.scores, res_.feasible
         res_.scores = res_.feasible = None
+        # koordlint: disable=donation-safety(the launch lock orders it after every earlier launch, whose readbacks hold a clone of the scores, ROADMAP Queue C "The incremental rescore's in-place write")
         return rescore_dirty(
             snap, scores, feasible, res_.dirty_nodes, res_.dirty_pods,
             self.cfg,
@@ -1494,6 +1498,7 @@ class ScorerServicer:
                     result.path or "", rounds, eff_wave, ms,
                 )
                 memo.done.set()
+            self.last_cycle = result
             self.telemetry.metrics.count_assign_memo("miss")
             self.telemetry.commit_scope(
                 scope, ms,

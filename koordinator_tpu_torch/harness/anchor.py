@@ -51,6 +51,21 @@ def cycle_digest(assignment, status) -> str:
     return h.hexdigest()
 
 
+def result_digests(result, pods: int, nodes: int, quotas: int) -> dict:
+    """sha256 of each of a ``CycleResult``'s five arrays, over the first
+    ``pods``/``nodes``/``quotas`` rows (a snapshot's padding excluded), as
+    little-endian int64 bytes.  Takes tensors on any device."""
+    rows = {"assignment": pods, "status": pods, "node_requested": nodes,
+            "node_estimated": nodes, "quota_used": quotas}
+    out = {}
+    for name, n in rows.items():
+        value = getattr(result, name)
+        host = np.asarray(value.cpu() if hasattr(value, "cpu") else value)[:n]
+        out[name] = hashlib.sha256(
+            np.ascontiguousarray(host, dtype="<i8").tobytes()).hexdigest()
+    return out
+
+
 def topk_digest(top_scores, top_idx) -> str:
     """sha256 over the little-endian int64 bytes of the top-k scores, then
     the int32 bytes of their indices.  Takes numpy arrays or CPU tensors."""

@@ -191,6 +191,7 @@ class PrewarmRunner:
                     break
                 c0 = time.perf_counter()
                 try:
+                    # koordlint: disable=retrace-hazard(replays the keys this daemon's own launches built and recorded, ROADMAP Queue C "The prewarm replays recorded build keys")
                     _build.build(rec["source"], tuple(rec["defines"]))
                 except Exception as exc:  # a variant that no longer builds costs its slot; the live path builds inline and fails there visibly
                     logger.exception("prewarm of %s %s failed",

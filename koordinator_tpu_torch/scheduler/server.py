@@ -41,6 +41,7 @@ import json
 import os
 import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -324,6 +325,9 @@ class SchedulerServer:
         self._slo_lock = witness_lock(
             "scheduler.server.SchedulerServer._slo_lock")
         self.uds_path = uds_path
+        # wall-clock stamps of this process's boot: imports done and the
+        # device ready (``main``), the transports binding (``start``)
+        self.boot: dict = {}
         self.enable_grpc = enable_grpc
         self._raw_server: Optional[RawUdsServer] = None
         self._grpc_server = None
@@ -374,6 +378,13 @@ class SchedulerServer:
                     return
                 if self.path == "/debug/stacks":
                     reply_text(self, format_thread_stacks())
+                    return
+                if self.path == "/debug/process":
+                    self._reply(200, outer.process_doc())
+                    return
+                if self.path == "/debug/last-cycle":
+                    doc = outer.last_cycle_doc()
+                    self._reply(200 if doc else 404, doc or {})
                     return
                 if self.path == "/metrics":
                     # the scorer families (obs/scorer_metrics.py) plus
@@ -494,6 +505,38 @@ class SchedulerServer:
                     self.journal_replay["replay_ms"]
                 )
         return out
+
+    def process_doc(self) -> dict:
+        """``/debug/process``: this daemon process's boot stamps, journal
+        counters, kernel launch counts (each wrapper's count) and loaded
+        kernel variants — what a harness driving the daemon as a separate
+        process reads of it."""
+        from koordinator_tpu_torch import _build
+        from koordinator_tpu_torch.solver import dense, wide
+
+        journal = self.journal
+        return {
+            "pid": os.getpid(),
+            "boot": dict(self.boot),
+            "journal": None if journal is None else journal.stats(),
+            "launches": {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES},
+            "loaded_variants": len(_build.loaded_variants()),
+            "kernel_demotions": len(kernel_demotions()),
+        }
+
+    def last_cycle_doc(self) -> Optional[dict]:
+        """``/debug/last-cycle``: sha256 of each of the last computed
+        Assign's five ``CycleResult`` arrays over the synced rows
+        (``harness/anchor.py result_digests``), or None before one."""
+        from koordinator_tpu_torch.harness.anchor import result_digests
+
+        result, state = self.servicer.last_cycle, self.servicer.state
+        if result is None or state.node_alloc is None:
+            return None
+        quotas = 0 if state.quota_runtime is None else state.quota_runtime.shape[0]
+        return {"path": result.path,
+                "digests": result_digests(result, state.pod_requests.shape[0],
+                                          state.node_alloc.shape[0], quotas)}
 
     def slo_health(self) -> dict:
         """The /healthz ``slo`` block: per-series p50/p99 of the cycle
@@ -717,6 +760,8 @@ class SchedulerServer:
                 self.state_dir, window_ms=window_ms
             ).encode()
 
+        # the journal is replayed: the transports bind from here on
+        self.boot["transports"] = time.time()
         self._raw_server = RawUdsServer(
             self.uds_path + ".raw", servicer=self.servicer,
             admin_handlers={
@@ -1211,7 +1256,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # every import of this module (torch included) is done by now
+    boot = {"imported": time.time()}
     args = build_arg_parser().parse_args(argv)
+    from koordinator_tpu_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        import torch
+
+        # the CUDA context, stamped apart from the journal replay
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    boot["device_ready"] = time.time()
     shed_fractions = {
         f"koord-{band}": value
         for band in ("free", "batch", "mid", "prod")
@@ -1255,7 +1312,9 @@ def main(argv=None) -> int:
         kernel_build_dir=args.kernel_build_dir,
         prewarm=args.prewarm,
         device=args.device,
-    ).start()
+    )
+    server.boot = boot
+    server.start()
     try:
         threading.Event().wait()  # koordlint: disable=unbounded-wait(main thread parks forever by design; the server threads own the work and KeyboardInterrupt unparks)
     except KeyboardInterrupt:

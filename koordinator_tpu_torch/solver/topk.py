@@ -58,6 +58,7 @@ def masked_top_k(scores, feasible, *, k, hi):
         hi is not None
         and 0 <= hi
         and hi + 1 < _F32_EXACT
+        # koordlint: disable=host-sync-in-jit(the path choice needs the in-bound test on the host, ROADMAP Queue C "The top-k branch's host read")
         and bool((((scores >= 0) & (scores <= hi)) | ~feasible).all())
     )
     if in_bound:

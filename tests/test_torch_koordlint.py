@@ -151,7 +151,8 @@ def reference_cases(name, classes, skip=()):
     ]
 
 
-# The generic rules' classes, in groups of at most 40 parametrised tests
+# The reference classes that run on both packages, in groups of at most 40
+# parametrised tests
 # (20 cases on two packages): each group runs from
 # ``tests/test_torch_koordlint_<group>.py``, so no test file grows past
 # the size the tier-1 run's per-file scheduling keeps balanced.
@@ -162,6 +163,10 @@ GROUPS = {
     "lockorder": ("TestLockOrderCycle", "TestLockOrderDocDrift", "TestSuppressionAudit"),
     "wire": ("TestWireContract",),
     "mirror": ("TestWirecheckMessageMirror", "TestMetricsDocDrift"),
+    # the two classes of the device-discipline rules that carry no JAX
+    # idiom; the other five are mirrored in the port's idiom
+    # (tests/test_torch_koordlint_devrules.py)
+    "device": ("TestTermConfigRule", "TestPrewarmDrift"),
 }
 GENERIC_CLASSES = tuple(cls for classes in GROUPS.values() for cls in classes)
 # the stale-regen case probes the generated scorer_pb2 by field NAME with a
@@ -484,7 +489,10 @@ class TestPortIsClean:
         assert set(RULES) == {
             "broad-except", "span-leak", "lock-held-dispatch", "bare-retry",
             "unbounded-wait", "wire-contract", "metrics-doc-drift", "lock-order-cycle",
-            "lockorder-doc-drift", "unguarded-shared-state"}
+            "lockorder-doc-drift", "unguarded-shared-state", "donation-safety",
+            "retrace-hazard", "host-sync-in-jit", "unregistered-jit-boundary",
+            "prewarm-drift"}
+        assert len(RULES) == len(set(RULES)) == 15
         for rule in RULES:
             run_rules_on_source("f.py", "", [rule])
 
