@@ -290,7 +290,28 @@ Phases (any failure raises and exits non-zero, printing no result):
     two boots fail past their 60 s budget; then, as the ``controlplane``
     line's oracle after its budget, the serial and the pipelined cold
     candidate builds at the ``sparse`` line's scale point (2^21 nodes x 512
-    pods, width 256), byte-equal (``coldstart_launches``).
+    pods, width 256), byte-equal (``coldstart_launches``);
+24. ``mesh``: the multi-device path (``parallel/``) on an in-process mesh
+    of 4 shards on the one card (``cluster_mesh([cuda:0] * 4)``, recorded
+    as virtual with its distinct device count): (a)
+    ``greedy_assign_waves(snap, mesh, wave=32, top_m=4)`` at the headline,
+    all five arrays equal to phase 4's K2 ``run_cycle(snap)``, its rounds
+    beside the wave headline's K3 rounds, its time (CUDA events, host
+    wall), its host reads per round and the host split of its round loop
+    (prep, key passes, gather and merge, resolve, apply, host read); (b)
+    ``greedy_assign_sharded(snap, mesh)`` equal to the same arrays; (c) a
+    mesh-resident ``ScorerServicer`` against a single-device one over the
+    same requests, every reply byte-equal (timing fields aside): the full
+    Sync, 8 delta Syncs (64 node rows, 16 pod rows each; every shard's
+    digest before and after, only the owning node shards and every pod
+    replica moving), a flat Score with k = 32 cold and incremental, one
+    Assign (path ``shard``, no kernel launched), each shard's resident
+    bytes, under ``retrace_guard(budget=0)``, no shard demotion; (d) the
+    sparse candidate build, refresh and Score on a 4-shard pod mesh at
+    2^21 nodes x 512 pods, width 256, byte-equal to the single-device
+    engine.  The line fails past its 90 s budget; its launches are
+    ``mesh_launches`` on the ``kernels`` line (the single-device servicer's
+    Assigns on K2).
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one CUDA card
 and exits non-zero without one.
@@ -1521,6 +1542,14 @@ BOUNDARY_RPC = {
     "solver.candidates._refresh": "score", "solver.candidates.score_candidates": "score",
     "solver.wide.cycle_wide_cuda": "assign", "solver.wide.wave_cycle_cuda": "assign",
     "solver.dense.cycle_dense_cuda": "assign", "solver.terms.term_extras": "assign",
+    # the multi-device path: the mesh-resident servicer's
+    "solver.resident._scatter_flat_sharded": "sync",
+    "solver.greedy.score_cycle_sharded": "score", "solver.incremental._rescore_sharded": "score",
+    "solver.candidates._build_sharded": "score", "solver.candidates._count_blocks_sharded": "score",
+    "solver.candidates._refresh_sharded": "score", "solver.candidates._score_sharded": "score",
+    "parallel.shard_assign._assign_waves": "assign",
+    "parallel.shard_assign._assign_sharded": "assign",
+    "parallel.shard_assign._cycle_operands": "assign",
 }
 
 
@@ -3852,19 +3881,339 @@ def coldstart_phase(card, dev):
     return line, launches
 
 
-ONLY_LINES = ("failover", "coldstart")
+# the mesh line (phase 24)
+MESH_BUDGET_S = 90.0
+MESH_SHARDS = 4
+MESH_DELTAS = 8
+MESH_SCORE_K = 32
+MESH_SPARSE = {"nodes": 1 << 21, "pods": 512, "width": 256, "seed": 16}
+MESH_PER_POD = {"pods": 2048, "nodes": 512}
+
+
+def sha(t) -> str:
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def shard_digests(snap):
+    """{leaf name: [sha256 of each shard]} of a mesh-resident snapshot's
+    node and pod tensors that a delta can write."""
+    return {f"{table}.{f}": [sha(s) for s in getattr(getattr(snap, table), f).shards]
+            for table, f in (("nodes", "requested"), ("nodes", "usage"), ("pods", "requests"))}
+
+
+def resident_bytes(snap, shards):
+    """(total bytes, bytes one device holds) of a mesh-resident snapshot,
+    by the reference's per-device arithmetic: a split leaf costs its bytes
+    over the shard count, a replicated one its whole bytes."""
+    from koordinator_tpu_torch.parallel.mesh import snapshot_leaves
+
+    total = per_device = 0
+    for leaf in snapshot_leaves(snap):
+        n = leaf.numel() * leaf.shards[0].element_size()
+        total += n
+        split = any(e is not None for e in leaf.sharding.spec)
+        per_device += n // shards if split else n
+    return total, per_device
+
+
+def score_bytes(reply) -> bytes:
+    """A ScoreReply's bytes without its timing field."""
+    reply.build_ms = 0.0
+    return reply.SerializeToString()
+
+
+def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
+    """The ``mesh`` line (phase 24): the multi-device path on an in-process
+    mesh of ``MESH_SHARDS`` shards on the one card.  Returns (line,
+    {kernel: launches on the line})."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch import parallel
+    from koordinator_tpu_torch.analysis.retrace_guard import retrace_guard
+    from koordinator_tpu_torch.bridge import wire
+    from koordinator_tpu_torch.bridge.server import ScorerServicer
+    from koordinator_tpu_torch.bridge.state import numpy_to_tensor
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.harness.golden import build_sync_request
+    from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
+    from koordinator_tpu_torch.solver import (
+        build_candidates, dense, kernel_demotions, refresh_candidates, run_cycle,
+        score_candidates, wide,
+    )
+
+    t_line = time.perf_counter()
+    torch.cuda.synchronize()
+    dense.reset_launches()
+    wide.reset_launches()
+    card_dev = dev if dev.type != "cuda" or dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+    mesh = parallel.cluster_mesh([card_dev] * MESH_SHARDS)
+    line = {"mesh": {"shards": mesh.size, "distinct_devices": mesh.distinct_devices,
+                     "virtual": mesh.distinct_devices < mesh.size,
+                     "devices": [str(d) for d in mesh.device_list]}, "card": card}
+    P, N = headline.assignment.shape[0], headline.node_requested.shape[0]
+    desc = "quota_colocation 10000 pods x 2000 nodes, 16 tenants, seed 0"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), (time.perf_counter() - w0) * 1e3
+
+    # (a) the round-based sharded cycle, exact against phase 4's K2
+    split = {}
+    (res_a, rounds), ev, wall = timed(lambda: parallel.greedy_assign_waves(
+        snap, mesh, wave=32, top_m=4, split=split))
+    assert_same("mesh (a) greedy_assign_waves", res_a, headline)
+    if res_a.path != "shard":
+        raise AssertionError(f"mesh (a): path {res_a.path}")
+    line["waves"] = {
+        "call": f"greedy_assign_waves(snap, cluster_mesh([cuda:0] * {MESH_SHARDS}), wave=32, "
+                "top_m=4)", "snapshot": desc, "rounds": rounds, "k3_rounds": wave_rounds,
+        "rounds_equal_k3": rounds == wave_rounds,
+        "ms_cuda_events": ev, "ms_host_wall": wall,
+        "host_reads": split["host_reads"], "host_reads_per_round": split["host_reads"] / rounds,
+        "resolve_graphed": split["resolve_graphed"],
+        "split_ms": {k[:-2]: v * 1e3 for k, v in split.items() if k.endswith("_s")},
+        "parity": "all five arrays equal phase 4's K2 run_cycle(snap)",
+    }
+    if rounds != wave_rounds:
+        line["waves"]["rounds_differ_because"] = (
+            "the shard rounds certify with solver/wave.py resolve_wave, the reference's "
+            "XLA wave_assign, whose rounds they equal (500 here on the CPU; "
+            "tests/test_torch_parallel.py holds them to the JAX package's shard rounds); "
+            "K3's count is the Pallas wave kernel's in-kernel certification, another "
+            "prefix rule with the same placements")
+
+    line["legs_s"] = {"waves": time.perf_counter() - t_line}
+    # (b) the per-pod sharded scan, one max over the shards per pod, at the
+    # reference test's 2,048 pods x 512 nodes (tests/test_parallel.py:94-106):
+    # at the headline its 10,000 pod steps of eager launches do not fit the
+    # line's budget beside (a) and (c)
+    t0 = time.perf_counter()
+    small = g.loadaware_joint(seed=0, pods=MESH_PER_POD["pods"], nodes=MESH_PER_POD["nodes"])
+    from koordinator_tpu_torch.model import encode_snapshot
+
+    snap_b = encode_snapshot(*small, device=dev)
+    want_b = run_cycle(snap_b)
+    res_b, ev_b, wall_b = timed(lambda: parallel.greedy_assign_sharded(snap_b, mesh))
+    assert_same("mesh (b) greedy_assign_sharded", res_b, want_b)
+    line["per_pod"] = {"call": "greedy_assign_sharded(snap, mesh)",
+                       "snapshot": f"loadaware_joint seed 0, {MESH_PER_POD['pods']} pods x "
+                                   f"{MESH_PER_POD['nodes']} nodes",
+                       "cut": "the headline's 10,000 pod steps do not fit the line's 90 s "
+                              "budget beside (a) and (c)",
+                       "ms_cuda_events": ev_b, "ms_host_wall": wall_b,
+                       "parity": "all five arrays equal run_cycle(snap) on K2"}
+    line["legs_s"]["per_pod"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) a mesh-resident servicer against a single-device one
+    node_list, pod_list, gangs, quotas = lists
+    Pn, Nn = len(pod_list), len(node_list)
+    req, _ = build_sync_request(node_list, pod_list, gangs, quotas,
+                                node_bucket=Nn, pod_bucket=Pn)
+    full = req.SerializeToString()
+    # the mesh-resident servicer rescores incrementally whatever the dirt;
+    # the single-device one, the oracle, rescores in full
+    meshed = ScorerServicer(mesh=mesh, mesh_resident=True, device=dev, score_memo=False,
+                            score_incr_max_ratio=1.0)
+    single = ScorerServicer(device=dev, score_memo=False, score_incr=False)
+    for sv in (meshed, single):
+        sv._epoch = sv.telemetry.spans.epoch = "24meshed"
+    pair = (meshed, single)
+
+    def both(call):
+        out = []
+        for sv in pair:
+            t0 = time.perf_counter()
+            reply = call(sv)
+            out.append((reply, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def flat(sv):
+        return sv.score(wire.ScoreRequest(snapshot_id=sv.snapshot_id(), top_k=MESH_SCORE_K,
+                                          flat=True))
+
+    serv = {"full_sync_bytes": len(full)}
+    (m_sync, m_ms), (s_sync, s_ms) = both(lambda sv: sv.sync(wire.SyncRequest.FromString(full)))
+    if m_sync.SerializeToString() != s_sync.SerializeToString():
+        raise AssertionError(f"mesh (c): full Sync replies differ: {m_sync} vs {s_sync}")
+    if meshed.state.active_mesh() is not mesh:
+        raise AssertionError("mesh (c): the snapshot is not mesh-resident")
+    serv["full_sync_ms"] = {"mesh": m_ms, "single": s_ms}
+    snap_m = meshed.state.snapshot()
+    total, per_device = resident_bytes(snap_m, mesh.size)
+    serv["resident_bytes"] = {"total": total, "per_device": per_device}
+    (m_cold, m_ms), (s_cold, s_ms) = both(flat)
+    if score_bytes(m_cold) != score_bytes(s_cold):
+        raise AssertionError("mesh (c): cold Score replies differ")
+    serv["cold_score_ms"] = {"mesh": m_ms, "single": s_ms}
+    # the guarded stream's routes are warm: K2 was built before the line, and
+    # the shard path builds nothing
+    from koordinator_tpu_torch.bridge.state import tensor_to_numpy
+
+    cur = {"node_requested": tensor_to_numpy(req.nodes.requested, None),
+           "node_usage": tensor_to_numpy(req.nodes.usage, None),
+           "pod_requests": tensor_to_numpy(req.pods.requests, None)}
+    kw = dict(cur, node_allocatable=tensor_to_numpy(req.nodes.allocatable, None))
+    n_loc = meshed.state.node_bucket // mesh.size
+    delta_ms, written = [], []
+    with retrace_guard(budget=0) as guard:
+        for new, changes in daemon_deltas(kw, MESH_DELTAS, seed=24):
+            msg = wire.SyncRequest()
+            msg.nodes.requested.CopyFrom(numpy_to_tensor(new["node_requested"],
+                                                         cur["node_requested"]))
+            msg.nodes.usage.CopyFrom(numpy_to_tensor(new["node_usage"], cur["node_usage"]))
+            msg.pods.requests.CopyFrom(numpy_to_tensor(new["pod_requests"],
+                                                       cur["pod_requests"]))
+            cur = {k: new[k] for k in cur}
+            raw = msg.SerializeToString()
+            before = shard_digests(meshed.state.snapshot())
+            (m_r, m_ms), (s_r, s_ms) = both(lambda sv: sv.sync(wire.SyncRequest.FromString(raw)))
+            if m_r.SerializeToString() != s_r.SerializeToString():
+                raise AssertionError("mesh (c): delta Sync replies differ")
+            if (meshed.state.last_sync_path, single.state.last_sync_path) != ("warm", "warm"):
+                raise AssertionError("mesh (c): a delta Sync went cold")
+            after = shard_digests(meshed.state.snapshot())
+            owners = sorted({int(r) // n_loc for r in changes[0][1]})
+            for leaf in ("nodes.requested", "nodes.usage"):
+                moved = [i for i, (a, b) in enumerate(zip(before[leaf], after[leaf])) if a != b]
+                if moved != owners:
+                    raise AssertionError(f"mesh (c): {leaf} shards {moved} changed, owners "
+                                         f"{owners}")
+            if len(set(after["pods.requests"])) != 1 or after["pods.requests"] == before[
+                    "pods.requests"]:
+                raise AssertionError("mesh (c): the pod replicas did not move together")
+            delta_ms.append({"mesh": m_ms, "single": s_ms})
+            written.append(owners)
+        # one more delta on a single node row: one shard moves, no other
+        node = 2 * n_loc + 7
+        new_req = cur["node_requested"].copy()
+        new_req[node, 0] += 1
+        msg = wire.SyncRequest()
+        msg.nodes.requested.CopyFrom(numpy_to_tensor(new_req, cur["node_requested"]))
+        cur["node_requested"] = new_req
+        raw = msg.SerializeToString()
+        before = shard_digests(meshed.state.snapshot())
+        (m_r, _), (s_r, _) = both(lambda sv: sv.sync(wire.SyncRequest.FromString(raw)))
+        after = shard_digests(meshed.state.snapshot())
+        moved = [i for i, (a, b) in enumerate(zip(before["nodes.requested"],
+                                                  after["nodes.requested"])) if a != b]
+        if m_r.SerializeToString() != s_r.SerializeToString() or moved != [2] or any(
+                before[k] != after[k] for k in ("nodes.usage", "pods.requests")):
+            raise AssertionError(f"mesh (c): a one-row delta on shard 2 moved shards {moved}")
+        serv["one_row_delta_moved_shards"] = moved
+        (m_inc, m_ms), (s_inc, s_ms) = both(flat)
+        if score_bytes(m_inc) != score_bytes(s_inc):
+            raise AssertionError("mesh (c): incremental Score replies differ")
+        serv["incremental_score_ms"] = {"mesh": m_ms, "single": s_ms}
+        torch.cuda.synchronize()
+        before = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+        ta = time.perf_counter()
+        m_as = meshed.assign(wire.AssignRequest(snapshot_id=meshed.snapshot_id()))
+        m_ms = (time.perf_counter() - ta) * 1e3
+        torch.cuda.synchronize()
+        shard_launches = {k: v - before[k] for k, v in
+                          {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}.items()}
+        ta = time.perf_counter()
+        s_as = single.assign(wire.AssignRequest(snapshot_id=single.snapshot_id()))
+        s_ms = (time.perf_counter() - ta) * 1e3
+    if m_as.path != "shard" or any(shard_launches.values()):
+        raise AssertionError(f"mesh (c): the mesh Assign took path {m_as.path}, launched "
+                             f"{shard_launches}")
+    if (list(m_as.assignment), list(m_as.status)) != (list(s_as.assignment),
+                                                        list(s_as.status)):
+        raise AssertionError("mesh (c): Assign replies differ")
+    incr = meshed.telemetry.registry.get("koord_scorer_score_incr_total", {"result": "incr"})
+    if not incr:
+        raise AssertionError("mesh (c): the incremental Score did not run incrementally: " + str(
+            {r: meshed.telemetry.registry.get("koord_scorer_score_incr_total", {"result": r})
+             for r in ("incr", "full", "fallback")}))
+    demotions = {k: v for k, v in kernel_demotions().items() if k[0] == "shard"}
+    if demotions:
+        raise AssertionError(f"mesh (c): shard demotions {demotions}")
+    serv.update(delta_ms=delta_ms, delta_owner_shards=written,
+                assign_ms={"mesh": m_ms, "single": s_ms},
+                assign_rounds=int(meshed.last_cycle.rounds),
+                assign_path={"mesh": m_as.path, "single": s_as.path},
+                builds=guard.compiles, demotions=guard.traces,
+                incremental_scores=incr,
+                parity="Sync, Score (cold, incremental; build_ms zeroed) and Assign "
+                       "(assignment, status) replies equal the single-device servicer's; "
+                       "each delta moved only its owning node shards and every pod replica")
+    line["servicer"] = serv
+    line["legs_s"]["servicer"] = time.perf_counter() - t0
+
+    # (d) the sparse candidate engine on a pod mesh, against one device
+    t0 = time.perf_counter()
+    sp = MESH_SPARSE
+    cfg = CycleConfig(candidate_width=sp["width"])
+    big = snapshot_from_numpy(g.sparse_leaves(sp["nodes"], sp["pods"],
+                                              n_open=sp["width"] // 2, seed=sp["seed"]),
+                              device=dev)
+    pmesh = parallel.pod_mesh([card_dev] * MESH_SHARDS)
+    (cand_s, count_s), b_ev, _ = timed(lambda: build_candidates(big, cfg, mesh=pmesh))
+    cand, count = build_candidates(big, cfg)
+    same = lambda a, b: torch.equal(parallel.mesh.gather(a), parallel.mesh.gather(b))  # noqa: E731
+    if not (same(cand_s, cand) and same(count_s, count)):
+        raise AssertionError("mesh (d): the pod-mesh build differs from one device's")
+    rng = np.random.default_rng(sp["seed"])
+    rows = sorted(rng.choice(big.nodes.capacity, 64, replace=False).tolist())
+    (ref_s, r_ev, _) = timed(lambda: refresh_candidates(big, cand_s, count_s, rows, [300],
+                                                        cfg, mesh=pmesh))
+    ref_1 = refresh_candidates(big, cand, count, rows, [300], cfg)
+    if not all(same(a, b) for a, b in zip(ref_s, ref_1)):
+        raise AssertionError("mesh (d): the pod-mesh refresh differs from one device's")
+    (sc_s, s_ev, _) = timed(lambda: score_candidates(big, cand_s, cfg, mesh=pmesh))
+    sc_1 = score_candidates(big, cand, cfg)
+    if not all(same(a, b) for a, b in zip(sc_s, sc_1)):
+        raise AssertionError("mesh (d): the pod-mesh Score differs from one device's")
+    line["sparse"] = {"nodes": big.nodes.capacity, "pods": big.pods.capacity,
+                      "width": sp["width"], "pod_mesh_shards": pmesh.size,
+                      "build_ms": b_ev, "refresh_64_nodes_1_pod_ms": r_ev, "score_ms": s_ev,
+                      "parity": "build, refresh and Score byte-equal to the single-device "
+                                "engine"}
+    line["legs_s"]["sparse"] = time.perf_counter() - t0
+    del big
+    torch.cuda.synchronize()
+    launches = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+    line["wall_s"] = time.perf_counter() - t_line
+    line["budget_s"] = MESH_BUDGET_S
+    if line["wall_s"] > MESH_BUDGET_S:
+        print(json.dumps({"mesh_over_budget": line}), file=sys.stderr)
+        raise AssertionError(f"mesh: the line took {line['wall_s']:.1f} s, over its "
+                             f"{MESH_BUDGET_S} s budget")
+    return line, launches
+
+
+ONLY_LINES = ("failover", "coldstart", "mesh")
 
 
 def only_lines(names) -> int:
-    """``python3 chip_smoke.py --only failover,coldstart``: the daemon-process
-    lines alone, after the card line, K2's build and phase 4's headline
+    """``python3 chip_smoke.py --only failover,coldstart,mesh``: those lines
+    alone, after the card line, the kernels' builds and phase 4's headline
     ``run_cycle(snap)`` (exact against ``greedy_assign``), which the
-    ``failover`` line holds its recovered daemons to."""
+    ``failover`` line holds its recovered daemons to and the ``mesh`` line
+    its sharded cycles (with the wave headline's K3 rounds)."""
     import torch
 
     from koordinator_tpu_torch import _build
+    from koordinator_tpu_torch.config import CycleConfig
     from koordinator_tpu_torch.harness import generators as g
-    from koordinator_tpu_torch.solver import dense, greedy_assign, run_cycle
+    from koordinator_tpu_torch.solver import dense, greedy_assign, run_cycle, wide
 
     unknown = set(names) - set(ONLY_LINES)
     if unknown:
@@ -3875,15 +4224,22 @@ def only_lines(names) -> int:
     print(card)
     phase_s = {}
     t0 = time.perf_counter()
-    _build.build(dense.KERNEL_SOURCE)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, (dense.KERNEL_SOURCE, wide.KERNEL_SOURCE)))
     snap, *cluster_lists, _ = g.quota_colocation_snapshot(device=torch.device("cuda"))
     result = run_cycle(snap)
-    assert_same("headline", result, greedy_assign(snap))
+    oracle = greedy_assign(snap)
+    assert_same("headline", result, oracle)
+    result_w = run_cycle(snap, CycleConfig(**WAVE_CFG))
+    assert_same("wave headline", result_w, oracle)
     phase_s["headline"] = time.perf_counter() - t0
     for name in names:
         t0 = time.perf_counter()
         if name == "failover":
             line, _ = failover_phase(card, cluster_lists, result)
+        elif name == "mesh":
+            line, _ = mesh_phase(card, torch.device("cuda"), snap, cluster_lists, result,
+                                 int(result_w.rounds))
         else:
             line, _ = coldstart_phase(card, torch.device("cuda"))
         print(json.dumps({name: line}))
@@ -4285,29 +4641,35 @@ def main() -> int:
     print(json.dumps({"coldstart": coldstart_line}))
     phase_done("23_coldstart")
 
+    # phase 24: the multi-device path on an in-process mesh on the card
+    mesh_line, mesh_launches = mesh_phase(card, dev, snap, cluster_lists, result,
+                                          int(result_w.rounds))
+    print(json.dumps({"mesh": mesh_line}))
+    phase_done("24_mesh")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
     lines = ("trace", "extras", "rebalance", "daemon", "chaos", "tree", "preempt", "lint",
-             "koordlet", "controlplane", "failover", "coldstart")
+             "koordlet", "controlplane", "failover", "coldstart", "mesh")
     cp_n = controlplane_launches
-    fo_n, cs_n = failover_launches, coldstart_launches
+    fo_n, cs_n, me_n = failover_launches, coldstart_launches, mesh_launches
     entries = (
         ("cycle_dense", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_dense.py:114", k1_launches,
          (0, extras_launches["K1"], 0, 0, 0, 0, 0, 0, 0, cp_n["cycle_dense"],
-          fo_n["cycle_dense"], cs_n["cycle_dense"]), k1_err, k1_ms,
+          fo_n["cycle_dense"], cs_n["cycle_dense"], me_n["cycle_dense"]), k1_err, k1_ms,
          k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
          (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
           k2_tree, k2_preempt, k2_lint, k2_koordlet, cp_n["cycle_wide"], fo_n["cycle_wide"],
-          cs_n["cycle_wide"]), k2_err, k2_ms,
+          cs_n["cycle_wide"], me_n["cycle_wide"]), k2_err, k2_ms,
          k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches,
          (0, 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"], fo_n["wave_cycle"],
-          cs_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
+          cs_n["wave_cycle"], me_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
          k3_bound_by),
     )
     print(json.dumps({"kernels": [{

@@ -21,9 +21,10 @@ module-locally, as in the reference, under ``solver/``, ``bridge/`` and
    outright, as the reference flags the ``jax.jit(fn)`` call form: the
    handle cannot carry the decorator (and builds at import);
 5. a per-shard launch (``local_map``/``shard_map``) outside any device
-   program is its own unattributed launch.  The port has no sharded path
-   yet (ROADMAP Queue A item 13): this shape gets real sites with
-   ``parallel/``.
+   program is its own unattributed launch.  The port's sites are
+   ``parallel/mesh.py shard_map``'s callers (``parallel/shard_assign.py``,
+   the sharded scatter, rescore, score and candidate builds): each calls it
+   inside its own registered boundary.
 
 **Host-only entries are classified, not flagged.**  A def that takes an
 entry with ``_build.entry`` but hands no CUDA stream to any call queries

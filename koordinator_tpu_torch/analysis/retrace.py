@@ -28,8 +28,8 @@ numbered as the reference's:
    ``solver/wide.py wave_cycle_cuda`` passes ``W`` and ``M`` as arguments
    of the launch entry, the clean form.  A per-shard body
    (``local_map``/``shard_map``) taking a mesh knob as a parameter is
-   flagged too; that half gets real sites with ``parallel/`` (ROADMAP
-   Queue A item 13).
+   flagged too: the port's per-shard bodies (``parallel/shard_assign.py``
+   and the sharded solver entries) close over the mesh instead.
 5. An unfrozen or unhashable ``CycleConfig`` term config: unchanged from
    the reference.  ``CycleConfig`` keys the servicer's Assign memo and
    rides every launch wrapper, so every dataclass reachable from its

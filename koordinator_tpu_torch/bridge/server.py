@@ -1,7 +1,7 @@
 """The BatchedScorer servicer: Sync, Score and Assign on the resident
 snapshot, and its gRPC transport.
 
-Counterpart of ``koordinator_tpu/bridge/server.py`` (single device).  One
+Counterpart of ``koordinator_tpu/bridge/server.py``.  One
 process owns the card; callers talk over a unix socket, through the raw
 framing of ``udsserver.py`` or through gRPC (``make_server``).  Score and
 Assign run the same device programs as the in-process API
@@ -32,7 +32,10 @@ Where the port differs from the reference:
   Score reads back the feasibility of its top-k cells only ([P, k], the
   ``ok`` matrix), not the [P, N] feasible tensor — except where the
   brownout cache keeps the full tensors (``KOORD_BROWNOUT_FULL_CELLS``).
-* the sharded Assign (``mesh=``) is not ported (ROADMAP Queue A item 13).
+* with a mesh, the shard Assign (``parallel.greedy_assign_waves``) runs
+  its rounds under the launch lock and reads its placements back there, as
+  the reference's demotion guard does; its fallback is the single-device
+  ``run_cycle`` on the mesh's lead device.
 
 Replication seam, as in the reference: ``journal_hook`` and then
 ``replication_hook`` run under ``_sync_lock`` after every committed Sync,
@@ -75,6 +78,7 @@ from koordinator_tpu_torch.obs import CycleTelemetry
 from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.obs import lockwitness
 from koordinator_tpu_torch.obs.lockwitness import witness_lock
+from koordinator_tpu_torch.parallel.mesh import check_mesh, gather, is_sharded, local
 from koordinator_tpu_torch.replication.admission import (
     AdmissionGate,
     BreakerOpen,
@@ -90,6 +94,7 @@ from koordinator_tpu_torch.solver import (
     run_cycle,
     score_candidates,
     score_cycle,
+    score_cycle_sharded,
     score_upper_bound,
     sparse_top_k,
 )
@@ -191,6 +196,7 @@ class ScorerServicer:
         coalesce_max_batch: int = 16,
         coalesce_window_ms: Optional[float] = None,
         pipeline_depth: int = DEFAULT_DEPTH,
+        mesh_resident: bool = False,
         coalesce_cap_ms: Optional[float] = None,
         score_memo: bool = True,
         max_inflight: int = 0,
@@ -233,16 +239,25 @@ class ScorerServicer:
           ledger as it is.
 
         ``device``: the card the resident snapshot lives on (default CUDA,
-        raising when absent; ``"cpu"`` runs the plain path).  ``mesh``: the
-        sharded Assign is ROADMAP Queue A item 13 of the port; a mesh of
-        more than one device is refused."""
-        if mesh is not None and getattr(mesh, "size", 1) > 1:
-            raise NotImplementedError(
-                "the sharded ScorerServicer is not ported (ROADMAP Queue A item 13)"
-            )
+        raising when absent; ``"cpu"`` runs the plain path).
+
+        ``mesh`` (a ``parallel.mesh.Mesh``): Assign runs the round-based
+        sharded cycle (``parallel.greedy_assign_waves``, wave widened to 32
+        from a per-pod config) and replies ``path="shard"``; a term config
+        serves Assign through the single-device ``run_cycle``.  A shard
+        failure demotes its shape bucket and serves the RPC through
+        ``run_cycle`` on the mesh's lead device, with the same placements;
+        the reply's path and the cycle's ``shard_error`` span note say so.
+        ``mesh_resident``: the snapshot itself lives on the mesh
+        (``bridge/state.py``): node tensors split, deltas scattered into
+        the owning shard, Score and the incremental rescore computed shard
+        by shard.  Pass a 1-D ``parallel.cluster_mesh``."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.state = ResidentState(device=self.device)
+        self.mesh = check_mesh(mesh)
+        self.mesh_resident = bool(mesh_resident and mesh is not None)
+        self.state = ResidentState(mesh=mesh if self.mesh_resident else None,
+                                   device=self.device)
         self._generation = 0
         # per-boot epoch in every snapshot id ("s<epoch>-<gen>"): a client
         # checking bare generation continuity could coincidentally pass
@@ -585,7 +600,7 @@ class ScorerServicer:
         try:
             with self._sync_lock:
                 if frame.kind == codec.KIND_FULL:
-                    fresh = ResidentState(device=self.device)
+                    fresh = ResidentState(mesh=self.state.mesh, device=self.device)
                     staged = None if req is None else fresh.stage_sync(req)
 
                     def commit_full() -> dict:
@@ -920,9 +935,16 @@ class ScorerServicer:
                 else:
                     incr_result = "full"  # nothing resident to advance
             if scores is None:
-                scores, feasible = score_cycle(snap, self.cfg)
+                if is_sharded(snap):
+                    # each shard's block on its own device, kept split for
+                    # the residency
+                    scores, feasible = score_cycle_sharded(snap, self.cfg)
+                else:
+                    scores, feasible = score_cycle(snap, self.cfg)
             if self._score_incr:
                 self.state.store_score_result(self.cfg, scores, feasible)
+            # mesh-resident tensors are assembled on the lead device
+            scores, feasible = gather(scores), gather(feasible)
             top_scores, top_idx = masked_top_k(
                 scores, feasible, k=k_launch,
                 hi=score_upper_bound(self.cfg),
@@ -946,7 +968,7 @@ class ScorerServicer:
             try:
                 t0 = time.perf_counter()
                 ts, ti, ok_np, valid_np, scores_np, feasible_np = read_back(
-                    top_scores, top_idx, ok, snap.pods.valid, scores_cache,
+                    top_scores, top_idx, ok, local(snap.pods.valid), scores_cache,
                     feasible_cache,
                 )
                 readback_s = time.perf_counter() - t0
@@ -1011,11 +1033,13 @@ class ScorerServicer:
             refresh_reason = None
             merges = 0
             if cres is None:
-                cand, count = build_candidates(snap, self.cfg)
+                # the node mesh, when configured, splits the pipelined
+                # build's counts pass over its blocks
+                cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
                 refresh_reason = "cold"
             elif cres.dirty_nodes or cres.dirty_pods:
                 if cres.merges >= self.cfg.candidate_max_stale:
-                    cand, count = build_candidates(snap, self.cfg)
+                    cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
                     refresh_reason = "stale"
                 else:
                     cand, count = refresh_candidates(
@@ -1047,7 +1071,7 @@ class ScorerServicer:
             try:
                 t0 = time.perf_counter()
                 ts, ti, ok_np, count_np, valid_np = read_back(
-                    top_scores, top_idx, top_ok, count, snap.pods.valid
+                    top_scores, top_idx, top_ok, gather(count), local(snap.pods.valid)
                 )
                 readback_s = time.perf_counter() - t0
                 try:
@@ -1111,7 +1135,7 @@ class ScorerServicer:
         # koordlint: disable=donation-safety(the launch lock orders it after every earlier launch, whose readbacks hold a clone of the scores, ROADMAP Queue C "The incremental rescore's in-place write")
         return rescore_dirty(
             snap, scores, feasible, res_.dirty_nodes, res_.dirty_pods,
-            self.cfg,
+            self.cfg, mesh=self.state.active_mesh(),
         )
 
     def _score_serve_memo(self, accepted, ks, memo, sid):
@@ -1444,7 +1468,7 @@ class ScorerServicer:
                 # assignment, status, validity and rounds in one transfer
                 with scope.span("readback"):
                     assignment, status, valid, got_rounds = read_back(
-                        result.assignment, result.status, snap.pods.valid,
+                        result.assignment, result.status, local(snap.pods.valid),
                         rounds,
                     )
                 return (
@@ -1510,13 +1534,61 @@ class ScorerServicer:
 
     @launch_section
     def _assign_cycle(self, snap, spans, i32_ok):
-        """Run the cycle: ``(CycleResult, rounds or None, wave width)``.
-        ``rounds`` stays a device scalar (or None: the dense kernel takes
-        a wave request beyond int32) for the stacked readback."""
+        """Run the cycle, shard-first when a mesh is configured: ``(CycleResult,
+        rounds or None, wave width)``.  ``rounds`` stays a device scalar on
+        the single-device route (or None: the dense kernel takes a wave
+        request beyond int32) for the stacked readback; the shard route's
+        is a host int, its placements host arrays read inside its demotion
+        guard."""
+        if self.mesh is not None and not self._term_names:
+            # koordlint: disable=lock-held-dispatch(the shard demotion guard reads the placements back under the launch lock, ROADMAP Queue C "The shard Assign's readback")
+            shard = self._assign_shard(snap, spans)
+            if shard is not None:
+                return shard
         with spans.span("dispatch"):
             # koordlint: disable=lock-held-dispatch(an Assign holds the launch lock for its whole cycle and the kernel ladder synchronizes each rung to demote a faulting kernel there, ROADMAP Queue C "The servicer")
             result = run_cycle(snap, self.cfg, i32_ok=i32_ok)
         return result, result.rounds, self.cfg.wave
+
+    def _assign_shard(self, snap, spans):
+        """The round-based sharded cycle under its demotion guard: the
+        result, or None when the bucket is demoted or the attempt failed
+        (the bucket is then demoted with the kernel ladder's backoff and
+        the cycle record notes ``shard_error``).  Fused terms have no
+        extras seam here, so the caller keeps them on ``run_cycle``."""
+        import dataclasses
+
+        from koordinator_tpu_torch import parallel
+        from koordinator_tpu_torch.solver import _demoted, _record_failure, _record_success
+
+        # a per-pod config widens to the sharded cycle's own width
+        wave = self.cfg.wave if self.cfg.wave > 1 else 32
+        top_m = self.cfg.top_m
+        bucket = ("shard", int(snap.nodes.allocatable.shape[0]), int(snap.pods.capacity),
+                  self.mesh.size, wave, top_m)
+        if _demoted(bucket):
+            return None
+        try:
+            # its own span name: a failed shard attempt next to the
+            # fallback's "dispatch" is not counted twice
+            with spans.span("dispatch_shard"):
+                result, rounds = parallel.greedy_assign_waves(
+                    snap, self.mesh, self.cfg, wave=wave, top_m=top_m, spans=spans,
+                )
+                # read back inside the guard: a late device fault surfaces
+                # here, where the fallback can still serve the RPC
+                assignment, status = read_back(result.assignment, result.status)
+                result = dataclasses.replace(result, assignment=assignment, status=status)
+        except Exception as exc:  # the shard attempt's fault demotes its bucket; the single-device cycle serves the RPC and the reply's path shows it
+            _record_failure(bucket)
+            spans.note("shard_error", f"{exc!r:.200}")
+            logger.exception(
+                "sharded assign failed; serving single-device and backing off bucket %r",
+                bucket,
+            )
+            return None
+        _record_success(bucket)
+        return result, rounds, wave
 
 
 # -- the gRPC transport --

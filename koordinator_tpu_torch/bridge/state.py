@@ -1,7 +1,6 @@
 """Resident snapshot state of the scorer seam.
 
-Counterpart of ``koordinator_tpu/bridge/state.py`` (single device).  Two
-layers:
+Counterpart of ``koordinator_tpu/bridge/state.py``.  Two layers:
 
 * **host mirrors** — numpy mirrors of every snapshot tensor; a warm Sync
   ships only sparse (index, value) deltas against them.  The mirrors are
@@ -22,6 +21,13 @@ path edits the same padded cells the cold build writes.
 
 The resident snapshot carries no names: they stay on this object, and
 replies are index-based.
+
+With a cluster mesh (``parallel/mesh.py cluster_mesh``) the snapshot is
+mesh-resident: node tensors split along the mesh's node axis, pod rows and
+the gang/quota tables replicate, every leaf placed by the policy of
+``parallel.mesh.snapshot_shardings``; a warm delta scatters into the
+owning shard only.  A node bucket that does not divide over the mesh stays
+single-device for that geometry (logged once).
 
 Where the reference donates, the port writes in place: the tensors a
 launched batch captured are the resident ones, so a delta commit must not
@@ -50,6 +56,13 @@ from koordinator_tpu_torch.model.snapshot import (
     pad_bucket,
 )
 from koordinator_tpu_torch.obs.spans import maybe_span
+from koordinator_tpu_torch.parallel.mesh import (
+    check_mesh,
+    node_sharding,
+    replicated_sharding,
+    score_sharding,
+    shard_tensor,
+)
 from koordinator_tpu_torch.solver.resident import apply_flat_delta
 
 R = res.NUM_RESOURCES
@@ -59,13 +72,6 @@ logger = logging.getLogger(__name__)
 # "no precomputed plan" sentinel for commit_donates/commit_sync —
 # distinct from None, which is a real plan value meaning "go cold"
 _PLAN_UNSET = object()
-
-
-def _check_no_mesh(mesh) -> None:
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(
-            "mesh-resident ResidentState is not ported (ROADMAP Queue A item 13)"
-        )
 
 
 def delta_encode(prev: np.ndarray, next_: np.ndarray, max_changes: int):
@@ -258,13 +264,14 @@ class ResidentState:
     """Numpy mirrors + the device-resident ClusterSnapshot built from them.
 
     ``device``: where the resident tensors live (default CUDA, raising
-    when it is absent; ``"cpu"`` runs the plain path).  ``mesh``: the
-    mesh-resident snapshot is ROADMAP Queue A item 13 of the port; a mesh
-    of more than one device is refused."""
+    when it is absent; ``"cpu"`` runs the plain path).  ``mesh``: a cluster
+    mesh makes the snapshot mesh-resident (module docstring); its leaves
+    are then ``ShardedTensor``s on the mesh's devices, and a geometry whose
+    node bucket does not divide over it stays on ``device``."""
 
     def __init__(self, mesh=None, device=None):
-        _check_no_mesh(mesh)
-        self.mesh = None
+        self.mesh = check_mesh(mesh)
+        self._mesh_skip_warned: set = set()
         self.device = resolve_device(device)
         self.node_alloc: Optional[np.ndarray] = None
         self.node_requested: Optional[np.ndarray] = None
@@ -636,9 +643,13 @@ class ResidentState:
         snap = self._snapshot
         nodes, pods, quotas = snap.nodes, snap.pods, snap.quotas
 
+        mesh = self.active_mesh()
+
         def updated(dev_arr, update):
             if update[0] == "delta":
-                return apply_flat_delta(dev_arr, update[1], update[2])
+                # a node tensor scatters into its owning shard only; a
+                # replicated one into every copy, with the same values
+                return apply_flat_delta(dev_arr, update[1], update[2], mesh=mesh)
             return None  # full: rebuilt below from the committed mirror
 
         node_patch = {}
@@ -707,7 +718,7 @@ class ResidentState:
                 new = updated(getattr(quotas, field), tensor_updates[key])
                 if new is None:
                     arr = getattr(self, key)
-                    new = self._place(
+                    new = self._place_rep(
                         arr.astype(bool) if field == "limited" else arr
                     )
                 quota_patch[field] = new
@@ -740,7 +751,14 @@ class ResidentState:
 
     def store_score_result(self, cfg, scores, feasible) -> None:
         """Adopt the tensors a Score launch just certified; the dirt
-        clears (the launch incorporated it)."""
+        clears (the launch incorporated it).  Mesh-resident, they are kept
+        split by node columns (``parallel.mesh.score_sharding``), so the
+        next incremental rescore is shard-local; tensors already placed so
+        are kept as they are."""
+        mesh = self.active_mesh()
+        if mesh is not None:
+            spec = score_sharding(mesh)
+            scores, feasible = shard_tensor(scores, spec), shard_tensor(feasible, spec)
         self._score_res = ScoreResidency(cfg, scores, feasible)
 
     def _note_score_dirty(self, score_dirty) -> None:
@@ -922,16 +940,51 @@ class ResidentState:
         out[: a.shape[0]] = a
         return out
 
+    # -- mesh placement --
+    def active_mesh(self):
+        """The cluster mesh for the current node bucket, or None (no mesh,
+        or the bucket does not divide over it: the snapshot then stays
+        single-device for this geometry, logged once)."""
+        if self.mesh is None:
+            return None
+        nb = self.node_bucket
+        if nb and nb % self.mesh.size == 0:
+            return self.mesh
+        if nb and nb not in self._mesh_skip_warned:
+            self._mesh_skip_warned.add(nb)
+            logger.warning(
+                "node bucket %d does not divide over the %d-device cluster mesh; "
+                "resident snapshot stays single-device for this geometry",
+                nb, self.mesh.size,
+            )
+        return None
+
     # -- per-field device tensors (shared by the cold rebuild and the
     #    warm patch, so the two paths write the same tensors) --
     def _place(self, a) -> torch.Tensor:
         """A NEW device tensor holding ``a`` (never a view of a mirror)."""
         return torch.from_numpy(np.array(a, copy=True)).to(self.device)
 
+    def _place_node(self, a):
+        """A node-major tensor: split along the cluster mesh's node axis
+        when mesh-resident, else one device tensor."""
+        m = self.active_mesh()
+        if m is None:
+            return self._place(a)
+        return shard_tensor(torch.from_numpy(np.asarray(a)), node_sharding(m, np.ndim(a)))
+
+    def _place_rep(self, a):
+        """A pod/gang/quota tensor: replicated over the cluster mesh when
+        mesh-resident (every shard's certifier and quota recheck reads
+        it), else one device tensor."""
+        m = self.active_mesh()
+        if m is None:
+            return self._place(a)
+        return shard_tensor(torch.from_numpy(np.asarray(a)), replicated_sharding(m))
+
     def _dev_padded2(self, key: str, rows: int) -> torch.Tensor:
-        return self._place(
-            self._pad2(np.asarray(getattr(self, key), np.int64), rows)
-        )
+        place = self._place_node if key.startswith("node_") else self._place_rep
+        return place(self._pad2(np.asarray(getattr(self, key), np.int64), rows))
 
     def _dev_metric_fresh(self) -> torch.Tensor:
         N = self.node_alloc.shape[0]
@@ -939,24 +992,24 @@ class ResidentState:
         fresh[:N] = (
             self.node_fresh if self.node_fresh is not None else np.ones(N, bool)
         )
-        return self._place(fresh)
+        return self._place_node(fresh)
 
     def _dev_agg_usage(self):
         if not _present(self.node_agg):
             return None
-        return self._place(_pad_rows_to(self.node_agg, self.node_bucket))
+        return self._place_node(_pad_rows_to(self.node_agg, self.node_bucket))
 
     def _dev_agg_fresh(self):
         if not _present(self.node_agg_fresh):
             return None
-        return self._place(
+        return self._place_node(
             _pad_rows_to(self.node_agg_fresh, self.node_bucket).astype(bool)
         )
 
     def _dev_prod_usage(self):
         if not _present(self.node_prod):
             return None
-        return self._place(
+        return self._place_node(
             _pad_rows_to(np.asarray(self.node_prod, np.int64), self.node_bucket)
         )
 
@@ -968,7 +1021,7 @@ class ResidentState:
         if self.node_accel is not None:
             src = np.asarray(self.node_accel, np.int32)
             col[: min(N, len(src))] = src[:N]
-        return self._place(col)
+        return self._place_node(col)
 
     def _dev_workload_class(self) -> torch.Tensor:
         P = self.pod_requests.shape[0]
@@ -976,10 +1029,10 @@ class ResidentState:
         if self.pod_workload is not None:
             src = np.asarray(self.pod_workload, np.int32)
             col[: min(P, len(src))] = src[:P]
-        return self._place(col)
+        return self._place_rep(col)
 
     def _dev_sensitivity(self) -> torch.Tensor:
-        return self._place(
+        return self._place_rep(
             self._pad2(
                 np.asarray(self.pod_sensitivity, np.int64), self.pod_bucket
             )
@@ -987,7 +1040,7 @@ class ResidentState:
 
     def _dev_throughput(self) -> torch.Tensor:
         """The [C, A] throughput matrix, never padded."""
-        return self._place(np.asarray(self.term_throughput, np.int64))
+        return self._place_rep(np.asarray(self.term_throughput, np.int64))
 
     def _dev_estimated(self) -> torch.Tensor:
         est = (
@@ -995,7 +1048,7 @@ class ResidentState:
             if self.pod_estimated is not None
             else self.pod_requests
         )
-        return self._place(self._pad2(np.asarray(est, np.int64), self.pod_bucket))
+        return self._place_rep(self._pad2(np.asarray(est, np.int64), self.pod_bucket))
 
     def _dev_priority(self) -> torch.Tensor:
         P = self.pod_requests.shape[0]
@@ -1006,7 +1059,7 @@ class ResidentState:
         )
         pprio = np.zeros(self.pod_bucket, np.int64)
         pprio[:P] = prio
-        return self._place(pprio)
+        return self._place_rep(pprio)
 
     def _dev_priority_class(self) -> torch.Tensor:
         P = self.pod_requests.shape[0]
@@ -1017,7 +1070,7 @@ class ResidentState:
         )
         # explicit classes from the wire, else derived from the priority
         # bands; padding is NONE (zeros would mean PROD)
-        return self._place(
+        return self._place_rep(
             _pc_column(self.pod_priority_class, prio, P, self.pod_bucket)
         )
 
@@ -1028,7 +1081,7 @@ class ResidentState:
         )
         pgang = np.full(self.pod_bucket, -1, np.int32)
         pgang[:P] = gang
-        return self._place(pgang)
+        return self._place_rep(pgang)
 
     def _dev_quota_id(self) -> torch.Tensor:
         P = self.pod_requests.shape[0]
@@ -1037,7 +1090,7 @@ class ResidentState:
         )
         pquota = np.full(self.pod_bucket, -1, np.int32)
         pquota[:P] = quota
-        return self._place(pquota)
+        return self._place_rep(pquota)
 
     def _dev_gangs(self) -> GangTable:
         gmin = self.gang_min if self.gang_min is not None else np.zeros(0, np.int32)
@@ -1047,8 +1100,8 @@ class ResidentState:
         gm = np.zeros(G, np.int32)
         gm[: len(gmin)] = gmin
         return GangTable(
-            min_member=self._place(gm),
-            valid=self._place(gvalid),
+            min_member=self._place_rep(gm),
+            valid=self._place_rep(gvalid),
             names=(),
         )
 
@@ -1079,15 +1132,15 @@ class ResidentState:
                 requested=(
                     self._dev_padded2("node_requested", nb)
                     if self.node_requested is not None
-                    else self._place(np.zeros((nb, R), np.int64))
+                    else self._place_node(np.zeros((nb, R), np.int64))
                 ),
                 usage=(
                     self._dev_padded2("node_usage", nb)
                     if self.node_usage is not None
-                    else self._place(np.zeros((nb, R), np.int64))
+                    else self._place_node(np.zeros((nb, R), np.int64))
                 ),
                 metric_fresh=self._dev_metric_fresh(),
-                valid=self._place(nvalid),
+                valid=self._place_node(nvalid),
                 agg_usage=self._dev_agg_usage(),
                 agg_fresh=self._dev_agg_fresh(),
                 prod_usage=self._dev_prod_usage(),
@@ -1102,11 +1155,11 @@ class ResidentState:
                 requests=self._dev_padded2("pod_requests", pb),
                 estimated=self._dev_estimated(),
                 priority_class=self._dev_priority_class(),
-                qos=self._place(np.zeros(pb, np.int32)),
+                qos=self._place_rep(np.zeros(pb, np.int32)),
                 priority=self._dev_priority(),
                 gang_id=self._dev_gang_id(),
                 quota_id=self._dev_quota_id(),
-                valid=self._place(pvalid),
+                valid=self._place_rep(pvalid),
                 workload_class=(
                     self._dev_workload_class()
                     if self.pod_workload is not None
@@ -1121,10 +1174,10 @@ class ResidentState:
             ),
             gangs=self._dev_gangs(),
             quotas=QuotaTable(
-                runtime=self._place(qrt),
-                used=self._place(quse),
-                limited=self._place(qlim),
-                valid=self._place(qvalid),
+                runtime=self._place_rep(qrt),
+                used=self._place_rep(quse),
+                limited=self._place_rep(qlim),
+                valid=self._place_rep(qvalid),
                 names=(),
             ),
             throughput=(

@@ -10,6 +10,7 @@ other; the dense encodings take an explicit ``device``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Tuple, Union
 
 import torch
@@ -35,10 +36,17 @@ def _freeze(m: ResMap) -> Tuple[Tuple[str, int], ...]:
     return tuple(sorted((k, int(v)) for k, v in m.items()))
 
 
+@functools.lru_cache(maxsize=256)
+def _dense_on(m: ResMap, device: torch.device) -> torch.Tensor:
+    return torch.tensor(res.weights_vector(dict(m)), dtype=torch.int64, device=device)
+
+
 def _dense(m: ResMap, device) -> torch.Tensor:
-    return torch.tensor(
-        res.weights_vector(dict(m)), dtype=torch.int64, device=device
-    )
+    """The dense [R] vector of ``m`` on ``device``, one tensor per (map,
+    device), which callers only read: an eager per-pod step asks for it on
+    every step, and a new device tensor from a host list is a copy that
+    waits for every launch queued before it."""
+    return _dense_on(m, torch.device("cpu") if device is None else torch.device(device))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -62,12 +62,22 @@ PREWARM_BOUNDARIES = (
 
 _PLAIN = "plain PyTorch on the device: nothing to build"
 PREWARM_EXCLUDED: Dict[str, str] = {
+    "parallel.shard_assign._assign_sharded": _PLAIN,
+    "parallel.shard_assign._cycle_operands": _PLAIN,
+    "parallel.shard_assign._assign_waves": _PLAIN,
     "solver.candidates._build": _PLAIN,
+    "solver.candidates._build_sharded": _PLAIN,
     "solver.candidates._count_blocks": _PLAIN,
+    "solver.candidates._count_blocks_sharded": _PLAIN,
     "solver.candidates._refresh": _PLAIN,
+    "solver.candidates._refresh_sharded": _PLAIN,
+    "solver.candidates._score_sharded": _PLAIN,
     "solver.candidates.score_candidates": _PLAIN,
     "solver.greedy.score_cycle": _PLAIN,
+    "solver.greedy.score_cycle_sharded": _PLAIN,
+    "solver.incremental._rescore_sharded": _PLAIN,
     "solver.incremental.rescore_dirty": _PLAIN,
+    "solver.resident._scatter_flat_sharded": _PLAIN,
     "solver.resident.apply_flat_delta": _PLAIN,
     "solver.terms.term_extras": _PLAIN,
     "solver.topk.masked_top_k": _PLAIN,

@@ -15,19 +15,15 @@ import torch
 from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE
 
 
-def _safe(capacity: torch.Tensor) -> torch.Tensor:
-    return torch.where(capacity == 0, torch.ones_like(capacity), capacity)
-
-
 def least_requested_score(
     requested: torch.Tensor, capacity: torch.Tensor
 ) -> torch.Tensor:
     """((capacity-requested)*MaxNodeScore)//capacity; 0 if cap==0 or req>cap."""
     requested = requested.long()
     capacity = capacity.long()
-    score = ((capacity - requested) * MAX_NODE_SCORE) // _safe(capacity)
-    zero = (capacity == 0) | (requested > capacity)
-    return torch.where(zero, torch.zeros_like(score), score)
+    empty = capacity == 0
+    score = ((capacity - requested) * MAX_NODE_SCORE) // torch.where(empty, 1, capacity)
+    return torch.where(empty | (requested > capacity), 0, score)
 
 
 def most_requested_score(
@@ -36,8 +32,10 @@ def most_requested_score(
     """(min(requested,capacity)*MaxNodeScore)//capacity; 0 if cap==0."""
     requested = requested.long()
     capacity = capacity.long()
-    score = (torch.minimum(requested, capacity) * MAX_NODE_SCORE) // _safe(capacity)
-    return torch.where(capacity == 0, torch.zeros_like(score), score)
+    empty = capacity == 0
+    score = (torch.minimum(requested, capacity) * MAX_NODE_SCORE) // torch.where(
+        empty, 1, capacity)
+    return torch.where(empty, 0, score)
 
 
 def weighted_resource_score(
@@ -49,7 +47,7 @@ def weighted_resource_score(
     weight_sum = weights.sum()
     total = (per_resource_score * weights).sum(-1)
     out = total // weight_sum.clamp(min=1)
-    return torch.where(weight_sum == 0, torch.zeros_like(out), out)
+    return torch.where(weight_sum == 0, 0, out)
 
 
 def least_allocated_scores(

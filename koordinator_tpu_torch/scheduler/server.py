@@ -29,8 +29,9 @@ Where the port differs from the reference:
   ``_build.py`` (``--kernel-build-dir``; default the package's gitignored
   ``_build/``), and ``--prewarm`` rebuilds the recorded kernel variants
   (``obs/prewarm.py``);
-* ``--mesh`` and ``--shard`` raise: the sharded Assign is ROADMAP Queue A
-  item 13;
+* ``--mesh N`` and ``--shard`` build an in-process mesh over the visible
+  devices of ``--device`` (``parallel/mesh.py visible_devices``: the CUDA
+  devices, or on the CPU the forced host platform's count);
 * ``enable_grpc`` with no ``grpc`` installed raises at ``start()``.
 """
 
@@ -62,10 +63,46 @@ from koordinator_tpu_torch.solver import kernel_demotions
 # sun_path of a unix socket address holds 107 bytes and a terminating NUL
 UDS_PATH_MAX = 107
 
-_MESH_REFUSAL = (
-    "the sharded Assign ({flag}) is not ported to koordinator_tpu_torch "
-    "(ROADMAP Queue A item 13); serve one device"
-)
+def _daemon_mesh(device, mesh_devices, shard):
+    """(mesh, mesh_resident) of the daemon's ``--mesh``/``--shard``.
+
+    ``--mesh`` builds the 1-D cluster mesh of the mesh-resident snapshot
+    over a power-of-two prefix of the visible devices (node buckets are
+    powers of two, so only such a mesh divides every geometry; a rounded
+    count is logged); ``--shard`` the 2-D ``make_mesh`` of the sharded
+    Assign over every visible device.  Neither: (None, False)."""
+    if not mesh_devices and not shard:
+        return None, False
+    from koordinator_tpu_torch.parallel import (
+        cluster_mesh,
+        make_mesh,
+        pow2_device_count,
+        visible_devices,
+    )
+
+    devices = visible_devices(device)
+    if not mesh_devices:
+        return make_mesh(devices), False
+    if mesh_devices == "auto":
+        want = len(devices)
+    else:
+        try:
+            want = int(mesh_devices)
+        except ValueError:
+            raise ValueError(
+                f"--mesh must be a device count or 'auto', got {mesh_devices!r}"
+            ) from None
+    n = pow2_device_count(min(max(1, want), len(devices)))
+    if n != want:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "--mesh %s rounded down to %d devices (largest power of two <= "
+            "visible %d: node buckets are powers of two, so only a power-of-two "
+            "mesh divides every geometry)",
+            mesh_devices, n, len(devices),
+        )
+    return cluster_mesh(devices[:n]), True
 
 
 def default_state_dir() -> str:
@@ -147,15 +184,14 @@ class SchedulerServer:
     ):
         """The reference's keyword surface, with ``kernel_build_dir`` for
         its ``xla_cache`` and ``device`` (default CUDA) for its
-        ``JAX_PLATFORMS``; ``shard``/``mesh_devices`` raise ``ValueError``
-        (ROADMAP Queue A item 13)."""
-        if shard:
-            raise ValueError(_MESH_REFUSAL.format(flag="--shard"))
-        if mesh_devices:
-            raise ValueError(_MESH_REFUSAL.format(flag="--mesh"))
+        ``JAX_PLATFORMS``.  ``mesh_devices`` (a count or ``"auto"``) serves
+        the mesh-resident snapshot over that many visible devices, rounded
+        down to a power of two; ``shard`` the round-based sharded Assign
+        over every visible device, the snapshot on one."""
         from koordinator_tpu_torch import resolve_device
 
         self.device = resolve_device(device)
+        mesh, mesh_resident = _daemon_mesh(self.device, mesh_devices, shard)
         for path in (uds_path, uds_path + ".raw", uds_path + ".repl"):
             check_uds_path(path)
         if state_dir is None:
@@ -198,6 +234,8 @@ class SchedulerServer:
             identity or f"{socket.gethostname()}-{os.getpid()}",
         )
         servicer_kw = {"device": self.device}
+        if mesh is not None:
+            servicer_kw.update(mesh=mesh, mesh_resident=mesh_resident)
         if pipeline_depth is not None:
             servicer_kw["pipeline_depth"] = int(pipeline_depth)
         if coalesce_cap_ms is not None:
@@ -935,15 +973,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--http-port", type=int, default=10251)
     ap.add_argument(
         "--shard", action="store_true",
-        help="the round-based multi-device Assign: not ported; the daemon "
-        "refuses it (ROADMAP Queue A item 13)",
+        help="serve the round-based sharded Assign over every visible device "
+        "(an in-process mesh; placements stay bit-identical); the snapshot "
+        "stays on one device — see --mesh",
     )
     ap.add_argument(
         "--mesh", dest="mesh_devices",
         default=os.environ.get("KOORD_MESH_DEVICES") or None,
-        help="the mesh-resident snapshot over N devices: not ported; the "
-        "daemon refuses it (ROADMAP Queue A item 13; env: "
-        "KOORD_MESH_DEVICES)",
+        help="serve the MESH-RESIDENT snapshot: split the cluster's node rows "
+        "over N visible devices ('auto' = all; rounded down to a power of "
+        "two), deltas scattered into the owning shard, Assign on the sharded "
+        "rounds (env: KOORD_MESH_DEVICES)",
     )
     ap.add_argument(
         "--pipeline-depth", type=int,

@@ -33,6 +33,7 @@ from koordinator_tpu_torch.solver.greedy import (  # noqa: F401
     queue_order,
     score_all,
     score_cycle,
+    score_cycle_sharded,
     step_feasible_scores,
 )
 from koordinator_tpu_torch.solver.candidates import (  # noqa: F401
@@ -194,6 +195,9 @@ def run_cycle(snapshot, cfg=None, extra_mask=None, extra_scores=None, i32_ok=Non
     reference's ``run_cycle``.  ``i32_ok``: callers that already know
     whether the snapshot fits the int32 kernels pass it to skip the check.
 
+    A snapshot placed on a mesh (``parallel/mesh.py``) is assembled on the
+    mesh's lead device first: this is the single-device route.
+
     Fused scoring terms (``cfg.heterogeneity``/``sensitivity``/``packing``)
     are materialised once (``terms.term_extras``) and folded into
     ``extra_scores``/``extra_mask``, which every route already reads.
@@ -202,9 +206,12 @@ def run_cycle(snapshot, cfg=None, extra_mask=None, extra_scores=None, i32_ok=Non
     extras the bound is their peak plus the terms' bound.
     """
     from koordinator_tpu_torch.config import DEFAULT_CYCLE_CONFIG
+    from koordinator_tpu_torch.parallel.mesh import unshard_snapshot
 
     if cfg is None:
         cfg = DEFAULT_CYCLE_CONFIG
+    # a snapshot placed on a mesh runs whole on its lead device
+    snapshot = unshard_snapshot(snapshot)
     caller_scores = extra_scores
     t_scores, t_mask = term_extras(snapshot, cfg)
     if t_scores is not None:

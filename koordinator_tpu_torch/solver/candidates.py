@@ -1,6 +1,6 @@
 """Sparse candidate-set scoring: [P, C] instead of [P, N].
 
-Counterpart of ``koordinator_tpu/solver/candidates.py`` (single device).
+Counterpart of ``koordinator_tpu/solver/candidates.py``.
 Score is served from a per-pod candidate list instead of the full pods x
 nodes tensor:
 
@@ -24,6 +24,12 @@ the lists ascend, the same lower-index tie order.
 Every index a scatter or gather takes is in range on the device: the pad
 slots of the dirty-row buckets are sliced off by their host-known count,
 and sentinel slots gather a clipped row whose result is masked off.
+
+Over a pod mesh (``parallel/mesh.py pod_mesh``) the build, refresh and
+scoring run pod-parallel with no communication: each shard sweeps its own
+pod rows against the replicated node table, and the [P, C] results come
+back split by pod rows (``ShardedTensor``s).  Over a node mesh the
+pipelined build's counts pass splits its node blocks instead.
 """
 
 from __future__ import annotations
@@ -130,9 +136,7 @@ def _build(snapshot, cfg):
     return cand, count
 
 
-@devprof.boundary("solver.candidates._count_blocks")
-def _count_blocks(snapshot, cfg) -> torch.Tensor:
-    """Exact feasible counts of every (block, pod): i64[NB, P], no merges."""
+def _count_carry(snapshot, cfg) -> torch.Tensor:
     n = snapshot.nodes.allocatable.shape[0]
     b = _sweep_block(n, int(cfg.candidate_width))
     return torch.stack([
@@ -141,13 +145,42 @@ def _count_blocks(snapshot, cfg) -> torch.Tensor:
     ])
 
 
+@devprof.boundary("solver.candidates._count_blocks")
+def _count_blocks(snapshot, cfg) -> torch.Tensor:
+    """Exact feasible counts of every (block, pod): i64[NB, P], no merges."""
+    return _count_carry(snapshot, cfg)
+
+
+@devprof.boundary("solver.candidates._count_blocks_sharded")
+def _count_blocks_sharded(snapshot, cfg, mesh) -> torch.Tensor:
+    """The counts pass with the block axis split over a node mesh: each
+    shard sweeps its own node rows' blocks (feasibility reads no node
+    index, so the local rows suffice), and the stacked [NB, P] counts come
+    out in global block order because shard d holds blocks
+    [d*NB/D, (d+1)*NB/D).  Returned whole on the lead device."""
+    from koordinator_tpu_torch.parallel.mesh import CLUSTER_AXIS, P, shard_map, spec_tree
+
+    specs = spec_tree(snapshot)
+    specs = dataclasses.replace(specs, nodes=dataclasses.replace(specs.nodes, **{
+        f.name: P(CLUSTER_AXIS, *([None] * (getattr(snapshot.nodes, f.name).dim() - 1)))
+        for f in dataclasses.fields(specs.nodes)
+        if getattr(snapshot.nodes, f.name) is not None and f.name != "names"
+    }))
+
+    def body(snap_l):
+        return _count_carry(snap_l, cfg)
+
+    return shard_map(body, mesh=mesh, in_specs=(specs,),
+                     out_specs=P(CLUSTER_AXIS, None))(snapshot).full()
+
+
 def _merge_lowest_host(cand: np.ndarray, new_idx: np.ndarray) -> np.ndarray:
     """Host twin of :func:`_merge_lowest`: an exact integer sort."""
     c = cand.shape[1]
     return np.sort(np.concatenate([cand, new_idx], axis=1), axis=1)[:, :c]
 
 
-def _build_pipelined(snapshot, cfg):
+def _build_pipelined(snapshot, cfg, node_mesh=None):
     """Pipelined cold build, equal to :func:`_build`:
 
     1. a counts pass gives each block's exact feasible count per pod;
@@ -158,13 +191,23 @@ def _build_pipelined(snapshot, cfg):
        ``_PIPELINE_DEPTH`` ahead of the host merge of earlier ones.
 
     The final lists are the C lowest feasible indices of each pod, and the
-    int64 counts are exact in any order."""
+    int64 counts are exact in any order.  ``node_mesh``: the counts pass
+    splits its blocks over it when each shard holds whole blocks."""
+    from koordinator_tpu_torch.parallel.mesh import unshard_snapshot
+
     nodes, pods = snapshot.nodes, snapshot.pods
     n = nodes.allocatable.shape[0]
     p = pods.requests.shape[0]
     c = int(cfg.candidate_width)
     b = _sweep_block(n, c)
-    counts_np = _count_blocks(snapshot, cfg).cpu().numpy()  # [NB, P]
+    sharded = snapshot
+    snapshot = unshard_snapshot(snapshot)
+    if (node_mesh is not None and node_mesh.size > 1
+            and n % node_mesh.size == 0 and (n // node_mesh.size) % b == 0):
+        counts = _count_blocks_sharded(sharded, cfg, node_mesh)
+    else:
+        counts = _count_blocks(snapshot, cfg)
+    counts_np = counts.cpu().numpy()  # [NB, P]
     count = counts_np.sum(axis=0, dtype=np.int64)
     before = np.cumsum(counts_np, axis=0, dtype=np.int64) - counts_np
     needed = np.nonzero(np.any((counts_np > 0) & (before < c), axis=1))[0]
@@ -192,25 +235,52 @@ def _check_sparse_cfg(cfg) -> None:
         )
 
 
-def _check_no_mesh(mesh, what: str) -> None:
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(
-            f"sharded {what} is not ported (ROADMAP Queue A item 13)"
+def _check_pod_mesh(snapshot, mesh) -> None:
+    p = snapshot.pods.requests.shape[0]
+    if p % mesh.size:
+        raise ValueError(
+            f"pod bucket {p} does not divide over {mesh.size} devices; "
+            "resize the pod mesh to a power-of-two prefix"
         )
+
+
+@devprof.boundary("solver.candidates._build_sharded")
+def _build_sharded(snapshot, cfg, mesh):
+    """The serial sweep on every pod shard of a pod mesh, against the
+    replicated node table: (cand, count) split by pod rows."""
+    from koordinator_tpu_torch.parallel.mesh import (
+        POD_AXIS,
+        P,
+        shard_map,
+        snapshot_pod_partition_specs,
+    )
+
+    def body(snap_l):
+        return _build(snap_l, cfg)
+
+    return shard_map(body, mesh=mesh, in_specs=(snapshot_pod_partition_specs(snapshot),),
+                     out_specs=(P(POD_AXIS, None), P(POD_AXIS)))(snapshot)
 
 
 def build_candidates(snapshot, cfg, mesh=None, node_mesh=None):
     """Cold build: (cand i32[P, C] ascending index lists with the sentinel
     N in empty slots, count i64[P] exact feasible totals), on the
-    snapshot's device.  From ``_PARALLEL_MIN_BLOCKS`` node blocks on, the
-    pipelined build runs; ``KOORD_PARALLEL_BUILD`` (0/1/auto) overrides
-    the routing.  Callers must :func:`check_candidate_overflow` the count
-    before serving from the lists.  ``mesh``/``node_mesh``: the sharded
-    builds are Queue A item 13 of the port; a mesh of more than one device
-    is refused."""
+    snapshot's device.  ``mesh``: a pod mesh runs the sweep pod-parallel
+    (:func:`_build_sharded`; the results come back split by pod rows).
+    Without one, from ``_PARALLEL_MIN_BLOCKS`` node blocks on the
+    pipelined build runs, its counts pass split over ``node_mesh`` when
+    one is given; ``KOORD_PARALLEL_BUILD`` (0/1/auto) overrides the
+    routing.  A snapshot placed on a node mesh is read whole on its lead
+    device, its counts pass on its shards.  Callers must
+    :func:`check_candidate_overflow` the count before serving from the
+    lists."""
+    from koordinator_tpu_torch.parallel.mesh import check_mesh, unshard_snapshot
+
     _check_sparse_cfg(cfg)
-    _check_no_mesh(mesh, "build_candidates")
-    _check_no_mesh(node_mesh, "build_candidates")
+    mesh, node_mesh = check_mesh(mesh), check_mesh(node_mesh)
+    if mesh is not None and mesh.size > 1:
+        _check_pod_mesh(snapshot, mesh)
+        return _build_sharded(snapshot, cfg, mesh)
     n = snapshot.nodes.allocatable.shape[0]
     blocks = n // _sweep_block(n, int(cfg.candidate_width))
     mode = _parallel_build_mode()
@@ -218,8 +288,8 @@ def build_candidates(snapshot, cfg, mesh=None, node_mesh=None):
         blocks >= _PARALLEL_MIN_BLOCKS if mode not in ("0", "1") else mode == "1"
     )
     if pipelined:
-        return _build_pipelined(snapshot, cfg)
-    return _build(snapshot, cfg)
+        return _build_pipelined(snapshot, cfg, node_mesh=node_mesh)
+    return _build(unshard_snapshot(snapshot), cfg)
 
 
 @devprof.boundary("solver.candidates._refresh")
@@ -260,29 +330,64 @@ def _refresh(snapshot, cand, count, node_idx, n_nodes, pod_idx, n_pods, cfg):
     return cand, count
 
 
+@devprof.boundary("solver.candidates._refresh_sharded")
+def _refresh_sharded(snapshot, cand, count, node_rows, pod_rows, cfg, mesh):
+    """The merge-refresh on every pod shard: the dirty node rows apply to
+    every shard (the node table is whole on each), the dirty pod rows are
+    rebased against each shard's pod offset on the host and rebuilt only
+    on the shard that owns them."""
+    from koordinator_tpu_torch.parallel.mesh import (
+        POD_AXIS,
+        P,
+        axis_index,
+        shard_map,
+        snapshot_pod_partition_specs,
+    )
+
+    pod_rows = sorted(int(r) for r in pod_rows)
+
+    def body(snap_l, cand_l, count_l):
+        n = snap_l.nodes.allocatable.shape[0]
+        p_loc = snap_l.pods.requests.shape[0]
+        lo = axis_index(POD_AXIS) * p_loc
+        mine = [r - lo for r in pod_rows if lo <= r < lo + p_loc]
+        dev = snap_l.device
+        node_idx, n_nodes = _upload_rows(_pad_rows(node_rows, n), n, dev)
+        pod_idx, n_pods = _upload_rows(_pad_rows(mine, p_loc), p_loc, dev)
+        return _refresh(snap_l, cand_l, count_l, node_idx, n_nodes, pod_idx, n_pods, cfg)
+
+    cspec = P(POD_AXIS, None)
+    return shard_map(
+        body, mesh=mesh,
+        in_specs=(snapshot_pod_partition_specs(snapshot), cspec, P(POD_AXIS)),
+        out_specs=(cspec, P(POD_AXIS)),
+    )(snapshot, cand, count)
+
+
 def refresh_candidates(snapshot, cand, count, node_rows, pod_rows, cfg, mesh=None):
     """Advance (cand, count) past a warm delta: ``node_rows``/``pod_rows``
     are the unique dirty row sets.  Exact under the non-overflow
     precondition (:func:`_refresh`).  Returns new tensors; the ones given
-    are not written."""
+    are not written.  ``mesh``: a pod mesh refreshes shard by shard
+    (:func:`_refresh_sharded`)."""
+    from koordinator_tpu_torch.parallel.mesh import check_mesh, gather, unshard_snapshot
+
     _check_sparse_cfg(cfg)
-    _check_no_mesh(mesh, "refresh_candidates")
+    mesh = check_mesh(mesh)
+    if mesh is not None and mesh.size > 1:
+        _check_pod_mesh(snapshot, mesh)
+        return _refresh_sharded(snapshot, cand, count, node_rows, pod_rows, cfg, mesh)
+    snapshot = unshard_snapshot(snapshot)
     n = snapshot.nodes.allocatable.shape[0]
     p = snapshot.pods.requests.shape[0]
     dev = snapshot.device
     node_idx, n_nodes = _upload_rows(_pad_rows(node_rows, n), n, dev)
     pod_idx, n_pods = _upload_rows(_pad_rows(pod_rows, p), p, dev)
-    return _refresh(snapshot, cand, count, node_idx, n_nodes, pod_idx, n_pods, cfg)
+    return _refresh(snapshot, gather(cand), gather(count), node_idx, n_nodes, pod_idx,
+                    n_pods, cfg)
 
 
-@devprof.boundary("solver.candidates.score_candidates")
-def score_candidates(snapshot, cand, cfg, mesh=None):
-    """(scores i64[P, C], feasible bool[P, C]) of the gathered cells, the
-    sparse engine's whole scoring cost, O(P x C): the cellwise
-    ``score_all`` body on node rows gathered per pod.  Sentinel slots
-    gather a clipped row and are forced infeasible."""
-    _check_sparse_cfg(cfg)
-    _check_no_mesh(mesh, "score_candidates")
+def _score_cells(snapshot, cand, cfg):
     n = snapshot.nodes.allocatable.shape[0]
     cand_l = cand.long()
     sub = dataclasses.replace(
@@ -292,11 +397,51 @@ def score_candidates(snapshot, cand, cfg, mesh=None):
     return scores, feas & (cand_l < n)
 
 
+@devprof.boundary("solver.candidates._score_sharded")
+def _score_sharded(snapshot, cand, cfg, mesh):
+    """The gathered cells of every pod shard, scored on that shard against
+    the replicated node table: (scores, feasible) split by pod rows."""
+    from koordinator_tpu_torch.parallel.mesh import (
+        POD_AXIS,
+        P,
+        shard_map,
+        snapshot_pod_partition_specs,
+    )
+
+    def body(snap_l, cand_l):
+        return _score_cells(snap_l, cand_l, cfg)
+
+    cspec = P(POD_AXIS, None)
+    return shard_map(body, mesh=mesh,
+                     in_specs=(snapshot_pod_partition_specs(snapshot), cspec),
+                     out_specs=(cspec, cspec))(snapshot, cand)
+
+
+@devprof.boundary("solver.candidates.score_candidates")
+def score_candidates(snapshot, cand, cfg, mesh=None):
+    """(scores i64[P, C], feasible bool[P, C]) of the gathered cells, the
+    sparse engine's whole scoring cost, O(P x C): the cellwise
+    ``score_all`` body on node rows gathered per pod.  Sentinel slots
+    gather a clipped row and are forced infeasible.  ``mesh``: a pod mesh
+    scores shard by shard (:func:`_score_sharded`)."""
+    from koordinator_tpu_torch.parallel.mesh import check_mesh, gather, unshard_snapshot
+
+    _check_sparse_cfg(cfg)
+    mesh = check_mesh(mesh)
+    if mesh is not None and mesh.size > 1:
+        _check_pod_mesh(snapshot, mesh)
+        return _score_sharded(snapshot, cand, cfg, mesh)
+    return _score_cells(unshard_snapshot(snapshot), gather(cand), cfg)
+
+
 def sparse_top_k(scores, feasible, cand, *, k, hi):
     """Serving top-k over the [P, C] cells, mapped back to node ids:
     (top_scores i64[P, k], top_node i32[P, k], ok bool[P, k]).  The lists
     ascend, so the lower-slot tie order is the dense lower-node order;
     non-ok slots report node 0."""
+    from koordinator_tpu_torch.parallel.mesh import gather
+
+    scores, feasible, cand = gather(scores), gather(feasible), gather(cand)
     ts, tc = masked_top_k(scores, feasible, k=k, hi=hi)
     tc = tc.long()
     ok = torch.gather(feasible, -1, tc)
@@ -308,6 +453,9 @@ def candidate_membership_mask(cand, num_nodes: int) -> torch.Tensor:
     """bool[P, N] membership mask of the candidate lists.  Sentinel slots
     set nothing; other indices follow JAX's ``mode="drop"`` rule (negative
     indices wrap once, what is still outside [0, N) is dropped)."""
+    from koordinator_tpu_torch.parallel.mesh import gather
+
+    cand = gather(cand)
     p, c = cand.shape
     n = int(num_nodes)
     cand_l = cand.long()

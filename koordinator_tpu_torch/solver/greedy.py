@@ -155,7 +155,7 @@ def step_feasible_scores(
     if cfg.enable_loadaware:
         per_res = least_requested_score(usage + node_estimated + est, alloc)
         la = weighted_resource_score(per_res, cfg.loadaware_weights_arr(dev))
-        la = torch.where(fresh, la, torch.zeros_like(la))
+        la = torch.where(fresh, la, 0)
         total = total + cfg.loadaware_plugin_weight * la
     return feasible, total
 
@@ -210,7 +210,18 @@ def greedy_assign(
     The loop reads the pods' ids and flags on the host once; the carried
     state and every choice stay on the device, so the loop never waits for
     it.
+
+    A snapshot placed on a mesh (``parallel/mesh.py``) runs the same scan
+    partitioned over its node shards (``parallel.greedy_assign_sharded``,
+    ``path="shard"``), what GSPMD does for the reference.
     """
+    from koordinator_tpu_torch.parallel.mesh import is_sharded, snapshot_mesh
+
+    if is_sharded(snapshot):
+        from koordinator_tpu_torch.parallel.shard_assign import greedy_assign_sharded
+
+        return greedy_assign_sharded(
+            snapshot, snapshot_mesh(snapshot), cfg, extra_mask, extra_scores)
     pods, nodes, quotas = snapshot.pods, snapshot.nodes, snapshot.quotas
     P = pods.capacity
     dev = nodes.allocatable.device
@@ -406,5 +417,35 @@ def score_all(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG
 @devprof.boundary("solver.greedy.score_cycle")
 def score_cycle(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG):
     """The Score RPC's full rescore: ``score_all`` over the whole
-    snapshot.  Returns (scores i64[P, N], feasible bool[P, N])."""
+    snapshot.  Returns (scores i64[P, N], feasible bool[P, N]).
+
+    A snapshot placed on a mesh computes each shard's [P, N] block on its
+    own device (:func:`score_cycle_sharded`, no communication: every cell
+    reads one pod row and one node row) and returns the blocks assembled
+    on the mesh's lead device."""
+    from koordinator_tpu_torch.parallel.mesh import is_sharded
+
+    if is_sharded(snapshot):
+        scores, feasible = score_cycle_sharded(snapshot, cfg)
+        return scores.full(), feasible.full()
     return score_all(snapshot, cfg)
+
+
+@devprof.boundary("solver.greedy.score_cycle_sharded")
+def score_cycle_sharded(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG):
+    """``score_all`` of a snapshot placed on a mesh, block by block: each
+    mesh position scores its own pod rows against its own node rows.
+    Returns (scores, feasible) as ``ShardedTensor``s split like the
+    snapshot's pod rows (axis 0) and node rows (axis 1) — for the
+    mesh-resident snapshot, ``parallel.mesh.score_sharding``."""
+    from koordinator_tpu_torch.parallel.mesh import P, shard_map, snapshot_mesh, spec_tree
+
+    specs = spec_tree(snapshot)
+    cells = P(specs.pods.requests[0] if specs.pods.requests else None,
+              specs.nodes.allocatable[0] if specs.nodes.allocatable else None)
+
+    def block(snap_l):
+        return score_all(snap_l, cfg)
+
+    return shard_map(block, mesh=snapshot_mesh(snapshot), in_specs=(specs,),
+                     out_specs=(cells, cells))(snapshot)

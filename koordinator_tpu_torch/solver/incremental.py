@@ -1,6 +1,6 @@
 """Incremental column/row rescore of the resident [P, N] score tensors.
 
-Counterpart of ``koordinator_tpu/solver/incremental.py`` (single device).
+Counterpart of ``koordinator_tpu/solver/incremental.py``.
 A warm delta Sync touches a few node rows and pod rows; this module
 recomputes only what they invalidated:
 
@@ -113,6 +113,40 @@ def _rescore_body(snapshot, scores, feasible, node_idx, n_nodes, pod_idx, n_pods
     return scores, feasible
 
 
+@devprof.boundary("solver.incremental._rescore_sharded")
+def _rescore_sharded(snapshot, scores, feasible, node_rows, pod_rows, cfg):
+    """Shard-local incremental rescore over the cluster mesh: the score
+    tensors are split by node columns (``parallel.mesh.score_sharding``),
+    column j with node j's rows.  Each shard rebases the dirty node rows
+    against its own column offset on the host, so a dirty column is
+    written on exactly the shard that owns it; the row pass scores the
+    dirty pod rows against each shard's own node rows and writes its own
+    [d_p, N_local] block.  ``scores`` is written in place shard by shard;
+    ``feasible`` comes back as new shards."""
+    from koordinator_tpu_torch.parallel.mesh import axis_index, shard_map, spec_tree
+
+    sharding = scores.sharding
+    ax = sharding.spec[1]
+    node_rows = sorted(int(r) for r in node_rows)
+    pod_rows = sorted(int(r) for r in pod_rows)
+
+    def body(snap_l, scores_l, feasible_l):
+        p_rows, n_loc = scores_l.shape
+        lo = axis_index(ax) * n_loc
+        mine = [r - lo for r in node_rows if lo <= r < lo + n_loc]
+        dev = scores_l.device
+        node_idx, n_nodes = _upload_rows(_pad_rows(mine, n_loc), n_loc, dev)
+        pod_idx, n_pods = _upload_rows(_pad_rows(pod_rows, p_rows), p_rows, dev)
+        return _rescore_body(snap_l, scores_l, feasible_l.clone(), node_idx, n_nodes,
+                             pod_idx, n_pods, cfg)
+
+    return shard_map(
+        body, mesh=sharding.mesh,
+        in_specs=(spec_tree(snapshot), sharding.spec, feasible.sharding.spec),
+        out_specs=(sharding.spec, sharding.spec),
+    )(snapshot, scores, feasible)
+
+
 @devprof.boundary("solver.incremental.rescore_dirty")
 def rescore_dirty(snapshot, scores, feasible, node_rows, pod_rows, cfg, mesh=None):
     """Recompute the dirty columns and rows of the resident score tensors.
@@ -124,11 +158,20 @@ def rescore_dirty(snapshot, scores, feasible, node_rows, pod_rows, cfg, mesh=Non
     ``scores`` is the given tensor, updated in place; ``feasible`` is a new
     tensor, and the one given is left as it was.
 
-    ``mesh``: the sharded rescore is Queue A item 13 of the port; a mesh of
-    more than one device is refused."""
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(
-            "sharded rescore_dirty is not ported (ROADMAP Queue A item 13)"
+    Score tensors placed on a mesh (``ShardedTensor``s split by node
+    columns, the snapshot placed on the same mesh) take the shard-local
+    rescore, :func:`_rescore_sharded`.  ``mesh``: the mesh the caller
+    expects them on; plain tensors with a given mesh of more than one
+    device are refused."""
+    from koordinator_tpu_torch.parallel.mesh import ShardedTensor, check_mesh
+
+    mesh = check_mesh(mesh)
+    if isinstance(scores, ShardedTensor):
+        return _rescore_sharded(snapshot, scores, feasible, node_rows, pod_rows, cfg)
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            "rescore_dirty: the score tensors are not placed on the given mesh "
+            "(parallel.mesh.score_sharding)"
         )
     P, N = scores.shape
     node_idx, n_nodes = _upload_rows(_pad_rows(node_rows, N), N, scores.device)

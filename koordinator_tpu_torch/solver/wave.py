@@ -88,6 +88,38 @@ def score_feasible(score: torch.Tensor) -> torch.Tensor:
     return score > SENTINEL_SCORE // 2
 
 
+def flatten_shards(a: torch.Tensor) -> torch.Tensor:
+    """Align a gathered per-shard candidate payload by wave lane:
+    ``[S, W, M, ...] -> [W, S*M, ...]``, the pool the cross-shard top-M
+    merge selects from."""
+    a = a.movedim(0, 1)
+    return a.reshape((a.shape[0], -1) + tuple(a.shape[3:]))
+
+
+def merge_topm_keys(gathered_key: torch.Tensor, top_m: int) -> torch.Tensor:
+    """Key-only cross-shard merge: the frozen global top-M packed keys per
+    wave pod.  Keys are unique, so ``torch.topk`` orders them as
+    ``lax.top_k`` does whatever its tie rule."""
+    return torch.topk(flatten_shards(gathered_key), top_m, dim=1).values
+
+
+def merge_topm(gathered: dict, top_m: int):
+    """The cross-shard top-M merge of the k_M path: flatten every gathered
+    row ``[S, W, M, ...] -> [W, S*M, ...]``, select the global top-M by
+    packed ``key`` and take each winner's rows along.  Returns ``(cand_key
+    i64[W, M], cand dict)`` as :func:`resolve_wave` reads them."""
+    g = {k: flatten_shards(v) for k, v in gathered.items()}
+    gkeys, gsel = torch.topk(g["key"], top_m, dim=1)
+
+    def take(a):
+        sel = gsel
+        while sel.dim() < a.dim():
+            sel = sel[..., None]
+        return torch.take_along_dim(a, sel.expand(sel.shape[:2] + a.shape[2:]), dim=1)
+
+    return gkeys, {k: take(v) for k, v in g.items() if k != "key"}
+
+
 def _rows_delta(hit: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """sum_w hit[w, k] * rows[w, :] -> [K, R], as a one-hot sum (the
     reference's int64 ``einsum('wk,wr->kr')``)."""
@@ -140,62 +172,70 @@ def resolve_wave(
         raise ValueError("wave resolution needs the candidate rows")
     dev = cand_key.device
     sent_th = sentinel_threshold(N)
-    iota_w = torch.arange(W, device=dev)
+    R = preq_wave.shape[1]
+
+    # per-lane values the loop reads, gathered once a round
+    qid_w = pqid_wave.to(torch.int64)
+    qi_w = qid_w.clamp(min=0)
+    has_quota_w = qid_w >= 0
+    k_m_w = cand_key[:, M - 1]
+    # k_M at sentinel: every frozen-feasible node is a candidate, and
+    # committed load never turns an infeasible node feasible
+    sentinel_w = k_m_w <= sent_th
+    lane_ok_w = pvalid_wave & wvalid
+    qlim_w, qrt_w = qlim[qi_w], qrt[qi_w]
+    pod_rows_w = torch.cat([preq_wave, pest_wave], dim=1)  # [W, 2R]
 
     choices = torch.full((W,), -1, dtype=torch.int64, device=dev)
     committed = torch.zeros((W,), dtype=torch.bool, device=dev)
     done = torch.zeros((W,), dtype=torch.bool, device=dev)
     active = torch.ones((), dtype=torch.bool, device=dev)
     quse_w = quse.clone()
-    ncommit = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(W):
         req, est, sreq = preq_wave[i], pest_wave[i], psreq_wave[i]
-        qid = pqid_wave[i].to(torch.int64)
-        qi = qid.clamp(min=0)
-        earlier = committed & (iota_w < i)
-        k_m = cand_key[i, M - 1]
-        # k_M at sentinel: every frozen-feasible node is a candidate, and
-        # committed load never turns an infeasible node feasible
-        sentinel_m = k_m <= sent_th
-
         if most_alloc:
-            u_gid = universe["gid"]
-            hit = earlier[:, None] & (choices[:, None] == u_gid[None, :])  # [W, U]
+            nodes = universe["gid"]
             if prod_sensitive:
                 usage = torch.where(pprod_wave[i], universe["uprod"], universe["usage"])
                 ok = torch.where(pprod_wave[i], universe["okp"], universe["okd"])
             else:
                 usage, ok = universe["usage"], universe["okd"]
-            rows, nodes = universe, u_gid
+            rows = universe
             xval, xfeas = universe["xval"][i], universe["xfeas"][i]
         else:
             nodes = cand["gid"][i]  # [M]
-            hit = earlier[:, None] & (choices[:, None] == nodes[None, :])  # [W, M]
             rows = {k: cand[k][i] for k in ("alloc", "nreq", "nest", "fresh")}
             usage, ok = cand["usage"][i], cand["ok"][i]
             xval, xfeas = cand["xval"][i], cand["xfeas"][i]
+        # the earlier in-wave commits onto each candidate: lanes not
+        # committed (later ones included) hold -1, which no node id equals
+        hit = choices[:, None] == nodes[None, :]  # [W, K]
+        delta = _rows_delta(hit, pod_rows_w)  # [K, 2R]
         # re-key with the same step semantics as the scan: the rows stand
         # in as a node block, quota off (admission is rechecked below)
         re_feas, re_total = step_feasible_scores(
-            rows["nreq"] + _rows_delta(hit, preq_wave),
-            rows["nest"] + _rows_delta(hit, pest_wave),
+            rows["nreq"] + delta[:, :R], rows["nest"] + delta[:, R:],
             quse_w, rows["alloc"], usage, rows["fresh"], ok,
             req, sreq, est, -1, True, qrt, qlim, cfg,
         )
-        re_total = re_total + torch.where(xfeas, xval, torch.zeros_like(xval))
+        re_total = re_total + torch.where(xfeas, xval, 0)
         cur = pack_keys(re_total, re_feas & xfeas, nodes, N)
         if not most_alloc:
             # only candidates dirtied in-wave changed their key
             cur = torch.where(hit.any(0), cur, cand_key[i])
-        best_key = cur.max()
-        best_node = nodes[cur.argmax()]
+        # indices stay on the device: indexing with a 0-d device tensor
+        # reads it on the host, a wait for every launch before it
+        best_key, best = cur.max(0)
+        best_node = nodes.index_select(0, best.view(1))[0]
         # pod 0 of a MostAllocated round has no earlier in-wave commits:
         # its frozen keys are current
-        certified = (best_key >= k_m) | sentinel_m | (most_alloc and i == 0)
+        certified = (best_key >= k_m_w[i]) | sentinel_w[i] | (most_alloc and i == 0)
         feas = best_key > sent_th
 
-        qblocked = (qid >= 0) & (qlim[qi] & (quse_w[qi] + req > qrt[qi])).any()
-        usable = pvalid_wave[i] & ~qblocked & wvalid[i]
+        qi = qi_w[i].view(1)
+        used = quse_w.index_select(0, qi)[0]
+        qblocked = has_quota_w[i] & (qlim_w[i] & (used + req > qrt_w[i])).any()
+        usable = lane_ok_w[i] & ~qblocked
         choice = torch.where(feas & usable, best_node, -1)
         # a -1 outcome is exact only when it is node-independent (blocked
         # quota, invalid pod, padding lane) or at the sentinel
@@ -206,11 +246,11 @@ def resolve_wave(
         choices[i] = torch.where(take_node, choice, -1)
         committed[i] = take_node
         done[i] = commit
-        charge = (take_node & (qid >= 0)).to(torch.int64)
-        quse_w = quse_w.index_add(0, qi.view(1), (req * charge)[None])
-        ncommit = ncommit + commit.to(torch.int64)
+        charge = (take_node & has_quota_w[i]).to(torch.int64)
+        quse_w.index_add_(0, qi, (req * charge)[None])
         active = active & certified
-    return choices, committed, done, quse_w, ncommit
+    # the committed prefix: every lane up to the first uncertified one
+    return choices, committed, done, quse_w, done.sum()
 
 
 def _wave_assign(

@@ -99,7 +99,7 @@ def test_pipelined_build_is_the_default_from_sixteen_blocks(monkeypatch):
     monkeypatch.delenv("KOORD_PARALLEL_BUILD", raising=False)
     routes = []
     monkeypatch.setattr(candidates, "_build_pipelined",
-                        lambda s, c: routes.append("pipelined") or (None, None))
+                        lambda s, c, node_mesh=None: routes.append("pipelined") or (None, None))
     monkeypatch.setattr(candidates, "_build", lambda s, c: routes.append("serial") or (None, None))
     for n in (4096, 16 * 1024):
         leaves = tgen.sparse_leaves(n, 8, n_open=2, seed=1)
@@ -209,7 +209,8 @@ def test_sparse_entry_points_refuse_width_zero_and_a_mesh(pair):
 
     with pytest.raises(ValueError, match="candidate_width"):
         candidates.build_candidates(ts, term_cfgs()[1])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the port cannot shard over (not a parallel.mesh.Mesh)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         candidates.build_candidates(ts, cfgs()[1], mesh=Mesh())
 
 

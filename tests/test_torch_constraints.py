@@ -330,3 +330,40 @@ def drive_gangs(mod, seed):
 @pytest.mark.parametrize("seed", range(6))
 def test_gang_event_streams_match(seed):
     assert drive_gangs(t_gang, seed) == drive_gangs(j_gang, seed)
+
+
+def test_post_filter_dry_runs_share_a_victim_in_both_packages():
+    """The PostFilter's dry runs do not see each other (ROADMAP Queue C):
+    two pending pods of one quota, one node holding one lower-priority pod
+    of that quota, and room for one preemptor only.  Each dry run runs
+    against the same inventory, so both pods name the same victim on the
+    same node, in both packages."""
+    import types
+
+    from koordinator_tpu.scheduler import framework as j_framework
+    from koordinator_tpu_torch.scheduler import framework as t_framework
+
+    cpu = {"cpu": "4000m", "memory": 4 << 30, "pods": 10}
+    victim = {"name": "victim", "priority": 100, "quota": "q0",
+              "requests": {"cpu": "3000m", "memory": 1 << 30, "pods": 1}}
+    pending = [{"name": f"pending-{i}", "index": i, "priority": 1000, "quota": "q0",
+                "requests": {"cpu": "3000m", "memory": 1 << 30, "pods": 1}}
+               for i in range(2)]
+    inventory = {
+        "node_allocatable": {"node-0": res.resource_vector(cpu)},
+        "node_pods": {"node-0": [victim]},
+        "quota_runtime": {"q0": [1 << 40] * res.NUM_RESOURCES},
+        "quota_used": {"q0": res.resource_vector(victim["requests"])},
+        "pending_pods": pending,
+    }
+    import torch
+
+    got = {}
+    for name, fw, unplaced in (
+            ("reference", j_framework, types.SimpleNamespace(assignment=np.array([-1, -1]))),
+            ("port", t_framework, types.SimpleNamespace(assignment=torch.tensor([-1, -1])))):
+        ctx = fw.CycleContext(snapshot=None, extras={"preemption": inventory})
+        out = fw.FrameworkExtender().post_filter_preempt(ctx, unplaced)
+        got[name] = {pod: (nv.node, [v["name"] for v in nv.victims]) for pod, nv in out.items()}
+    want = {"pending-0": ("node-0", ["victim"]), "pending-1": ("node-0", ["victim"])}
+    assert got["port"] == got["reference"] == want

@@ -1,6 +1,6 @@
 """The port's koord-scheduler daemon (``koordinator_tpu_torch/scheduler/
 server.py``) on the CPU: lease election against the reference's lease
-file, Assign gated on leadership, the refused mesh, the reference's flags
+file, Assign gated on leadership, the mesh of --shard and --mesh, the reference's flags
 and healthz blocks, the kernel prewarm record, the client's follower
 routing and leader probing, and a leader with a follower daemon end to
 end — replication, the journal's warm restart, promotion over the admin
@@ -182,21 +182,64 @@ def test_the_daemon_serves_and_gates_assign_on_leadership():
         s.stop()
 
 
-@pytest.mark.parametrize("kw", [{"shard": True}, {"mesh_devices": "auto"},
-                                {"mesh_devices": "2"}], ids=["shard", "mesh_auto", "mesh_2"])
-def test_the_sharded_assign_is_refused(kw):
-    with pytest.raises(ValueError, match="item 13"):
-        _server(_short_dir(), "l", **kw)
+# the daemon's mesh over the CPU: the test configuration forces 8 host
+# devices, so visible_devices("cpu") names the CPU eight times
+@pytest.mark.parametrize("kw,axes,shards,resident", [
+    ({"shard": True}, ("pods", "nodes"), 8, False),
+    ({"mesh_devices": "auto"}, ("nodes",), 8, True),
+    ({"mesh_devices": "2"}, ("nodes",), 2, True),
+    ({"mesh_devices": "3"}, ("nodes",), 2, True),
+], ids=["shard", "mesh_auto", "mesh_2", "mesh_3"])
+def test_the_sharded_assign_builds_its_mesh(kw, axes, shards, resident):
+    """``--shard`` builds ``make_mesh`` over every visible device;
+    ``--mesh`` a cluster mesh over a power-of-two prefix of them (``3``
+    rounds down to 2), the snapshot resident on it."""
+    import torch
+
+    s = _server(_short_dir(), "l", **kw)
+    try:
+        mesh = s.servicer.mesh
+        assert (mesh.axis_names, mesh.size, s.servicer.mesh_resident) == (axes, shards, resident)
+        assert mesh.device_list == (torch.device("cpu"),) * shards
+        assert (s.servicer.state.mesh is mesh) is resident
+    finally:
+        s.stop()
 
 
-@pytest.mark.parametrize("argv", [["--shard"], ["--mesh", "auto"]], ids=["shard", "mesh"])
-def test_the_cli_refuses_the_sharded_assign(argv):
-    from koordinator_tpu_torch.scheduler.server import main
+def test_mesh_4_on_a_one_device_host_gives_one_device(monkeypatch, caplog):
+    monkeypatch.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
+    s = _server(_short_dir(), "l", mesh_devices="4")
+    try:
+        assert s.servicer.mesh.size == 1 and s.servicer.mesh_resident
+    finally:
+        s.stop()
+    assert "--mesh 4 rounded down to 1 devices" in caplog.text
 
+
+@pytest.mark.parametrize("argv,axes,shards", [(["--shard"], ("pods", "nodes"), 8),
+                                              (["--mesh", "auto"], ("nodes",), 8)],
+                         ids=["shard", "mesh"])
+def test_the_cli_builds_the_mesh(argv, axes, shards, monkeypatch):
+    from koordinator_tpu_torch.scheduler import server as daemon
+
+    built = {}
+
+    class Built(Exception):
+        pass
+
+    def build(**kw):
+        s = SchedulerServer(**kw)
+        built["mesh"] = s.servicer.mesh
+        s.stop()
+        raise Built
+
+    monkeypatch.setattr(daemon, "SchedulerServer", build)
     d = _short_dir()
-    with pytest.raises(ValueError, match="item 13"):
-        main(argv + ["--device", "cpu", "--uds", os.path.join(d, "s.sock"),
-                     "--lease", os.path.join(d, "lease"), "--state-dir", d])
+    with pytest.raises(Built):
+        daemon.main(argv + ["--device", "cpu", "--uds", os.path.join(d, "s.sock"),
+                            "--lease", os.path.join(d, "lease"), "--state-dir", d,
+                            "--no-grpc", "--http-port", "0"])
+    assert (built["mesh"].axis_names, built["mesh"].size) == (axes, shards)
 
 
 def test_a_socket_path_past_the_address_limit_is_refused():
@@ -234,6 +277,10 @@ def test_the_parser_has_the_references_flags_but_the_listed_renames():
             assert ours[flag] == dest, flag
     args = build_arg_parser().parse_args([])
     assert (args.device, args.grpc, args.kernel_build_dir) == ("cuda", True, None)
+    # --shard and --mesh are the reference's, served rather than refused
+    assert (ours["--shard"], ours["--mesh"]) == ("shard", "mesh_devices")
+    args = build_arg_parser().parse_args(["--shard", "--mesh", "3"])
+    assert (args.shard, args.mesh_devices) == (True, "3")
 
 
 def _keys(doc, prefix=""):
@@ -288,10 +335,11 @@ def test_the_healthz_blocks_have_the_references_keys(monkeypatch):
 def test_the_prewarm_tables_cover_every_launch_boundary_once():
     from koordinator_tpu_torch.obs import devprof
     from koordinator_tpu_torch.obs.prewarm import PREWARM_BOUNDARIES, PREWARM_EXCLUDED
+    from koordinator_tpu_torch.parallel import shard_assign  # noqa: F401
     from koordinator_tpu_torch.solver import candidates, dense, incremental, resident, wide  # noqa: F401
 
     # the port's launch boundaries (a test may register its own names)
-    names = {n for n in devprof.boundaries() if n.startswith("solver.")}
+    names = {n for n in devprof.boundaries() if n.startswith(("solver.", "parallel."))}
     assert set(PREWARM_BOUNDARIES) | set(PREWARM_EXCLUDED) == names
     assert not set(PREWARM_BOUNDARIES) & set(PREWARM_EXCLUDED)
 

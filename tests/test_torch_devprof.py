@@ -36,13 +36,23 @@ from koordinator_tpu_torch.solver import candidates, resident  # noqa: F401  (re
 from koordinator_tpu_torch.bridge import wire
 
 BOUNDARIES = (
+    "parallel.shard_assign._assign_sharded",
+    "parallel.shard_assign._assign_waves",
+    "parallel.shard_assign._cycle_operands",
     "solver.candidates._build",
+    "solver.candidates._build_sharded",
     "solver.candidates._count_blocks",
+    "solver.candidates._count_blocks_sharded",
     "solver.candidates._refresh",
+    "solver.candidates._refresh_sharded",
+    "solver.candidates._score_sharded",
     "solver.candidates.score_candidates",
     "solver.dense.cycle_dense_cuda",
     "solver.greedy.score_cycle",
+    "solver.greedy.score_cycle_sharded",
+    "solver.incremental._rescore_sharded",
     "solver.incremental.rescore_dirty",
+    "solver.resident._scatter_flat_sharded",
     "solver.resident.apply_flat_delta",
     "solver.terms.term_extras",
     "solver.topk.masked_top_k",
@@ -95,12 +105,13 @@ def _series(registry, family):
 
 
 def test_every_serving_boundary_is_registered():
+    from koordinator_tpu_torch.parallel import shard_assign
     from koordinator_tpu_torch.solver import dense, greedy, incremental, terms, topk, wide
 
     assert set(BOUNDARIES) <= set(devprof.boundaries())
     modules = {"candidates": candidates, "dense": dense, "greedy": greedy,
                "incremental": incremental, "resident": resident, "terms": terms,
-               "topk": topk, "wide": wide}
+               "topk": topk, "wide": wide, "shard_assign": shard_assign}
     for name in BOUNDARIES:
         _, module, fn_name = name.split(".")
         fn = getattr(modules[module], fn_name)
@@ -114,6 +125,7 @@ def test_chip_smoke_maps_every_boundary_to_an_rpc():
     import importlib.util
     import pathlib
 
+    from koordinator_tpu_torch import parallel  # noqa: F401
     from koordinator_tpu_torch.solver import dense, greedy, incremental, terms, topk, wide  # noqa: F401
 
     spec = importlib.util.spec_from_file_location(

@@ -46,8 +46,14 @@ def test_apply_flat_delta_refuses_a_mesh():
     class Mesh:
         size = 4
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the port cannot shard over, and a tensor not placed on a mesh
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         resident.apply_flat_delta(torch.zeros(4, dtype=torch.int64), [0], [1], mesh=Mesh())
+    from koordinator_tpu_torch.parallel import cluster_mesh
+
+    with pytest.raises(ValueError, match="not placed on the given mesh"):
+        resident.apply_flat_delta(torch.zeros(4, dtype=torch.int64), [0], [1],
+                                  mesh=cluster_mesh([torch.device("cpu")] * 4))
 
 
 def delta_step(rng, js, ts, n_nodes, n_pods):
@@ -112,5 +118,10 @@ def test_rescore_pad_rows_and_refusals():
     class Mesh:
         size = 2
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         incremental.rescore_dirty(ts, s, f, [1], [], cfg, mesh=Mesh())
+    from koordinator_tpu_torch.parallel import cluster_mesh
+
+    with pytest.raises(ValueError, match="not placed on the given mesh"):
+        incremental.rescore_dirty(ts, s, f, [1], [], cfg,
+                                  mesh=cluster_mesh([torch.device("cpu")] * 2))

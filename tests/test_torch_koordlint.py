@@ -16,6 +16,7 @@ finds nothing and the suppression audit is clean.  The codec
 ``tests/test_torch_koordlint_mirror.py``.
 """
 
+import contextlib
 import functools
 import inspect
 import os
@@ -27,9 +28,11 @@ import types
 from pathlib import Path
 
 import pytest
+import torch
 
 from koordinator_tpu_torch.analysis import RULES, lockdispatch, lockgraph
 from koordinator_tpu_torch.analysis.core import run_repo, run_rules_on_source
+from koordinator_tpu_torch.parallel.mesh import snapshot_leaves, visible_devices
 from test_torch_constraints import _ON_CPU, PACKAGES
 
 TESTS = Path(__file__).resolve().parent
@@ -52,15 +55,62 @@ _PORT_READS = (
 
 
 # entry points beside ``_ON_CPU`` that take a device: the port binding runs
-# them on the CPU
-_PORT_ON_CPU = ("SchedulerServer",)
+# them on the CPU (a mesh built without devices spans the CPU's forced
+# host-platform devices, as ``jax.devices()`` does under tests/conftest.py)
+_PORT_ON_CPU = ("SchedulerServer", "make_mesh", "cluster_mesh", "pod_mesh")
+
+# the JAX objects a reference case speaks of, and the port's counterparts
+# its edits below name (ROADMAP Queue C "The in-process mesh")
+_PORT_NAMES = {
+    "_visible_devices": lambda: visible_devices("cpu"),
+    "_mesh_scope": contextlib.nullcontext,
+    "_tree_leaves": snapshot_leaves,
+    "_tree_flatten": lambda snap: (snapshot_leaves(snap), None),
+    "torch": torch,
+}
+
+# the device list, the mesh scope and the sharding specs of the reference's
+# mesh cases (``jax.devices()``, ``with mesh:``, ``jax.sharding``)
+_MESH_EDITS = (
+    ("jax.devices()", "_visible_devices()"),
+)
 
 # edits a reference module needs to run on the port, each a stated
 # difference (ROADMAP Queue C): ``torch.full`` takes its dtype by keyword,
-# where ``jnp.full`` takes it third
+# where ``jnp.full`` takes it third; the mesh cases name the port's mesh
+# objects (``_PORT_NAMES``), its arrays (``torch.as_tensor``), a generator
+# that takes a device, and the kernel ladder's demotion store
 _PORT_EDITS = {
     "test_e2e_smoke": (
         ("POLICY_SINGLE_NUMA_NODE, jnp.int32", "POLICY_SINGLE_NUMA_NODE, dtype=jnp.int32"),
+    ),
+    "test_parallel": _MESH_EDITS + (
+        ("    with mesh:\n", "    with _mesh_scope(mesh):\n"),
+        ("jax.numpy.asarray(", "torch.as_tensor("),
+        ("jax.numpy.int64", "torch.int64"),
+        ("generators.quota_colocation_snapshot(pods=512, nodes=128)",
+         "generators.quota_colocation_snapshot(pods=512, nodes=128, device='cpu')"),
+    ),
+    "test_mesh_resident": _MESH_EDITS + (
+        ("from jax.sharding import PartitionSpec as P",
+         "from koordinator_tpu_torch.parallel.mesh import PartitionSpec as P"),
+        ("jax.tree_util.tree_leaves(", "_tree_leaves("),
+        ("jax.tree_util.tree_flatten(", "_tree_flatten("),
+    ),
+    "test_bridge": _MESH_EDITS + (
+        ("from koordinator_tpu_torch.bridge import ScorerClient, serve_uds",
+         "from koordinator_tpu_torch.bridge.client import ScorerClient\n"
+         "from koordinator_tpu_torch.bridge.server import serve_uds"),
+        ("solver._PALLAS_LOCK", "solver._LOCK"),
+        ("solver._PALLAS_FAILURES", "solver._FAILURES"),
+    ),
+    "test_score_incremental": _MESH_EDITS,
+    "test_parity_fuzz": _MESH_EDITS,
+    "test_terms": _MESH_EDITS,
+    "test_resident_warm": _MESH_EDITS,
+    "test_candidates": _MESH_EDITS + (
+        ("sparse_top_k(s_sp, f_sp, cand, k=k, hi=hi)",
+         "sparse_top_k(torch.as_tensor(s_sp), torch.as_tensor(f_sp), cand, k=k, hi=hi)"),
     ),
 }
 
@@ -79,6 +129,11 @@ def rebound(name: str, package: str) -> types.ModuleType:
     path = TESTS / f"{name}.py"
     src = path.read_text()
     src = re.sub(r"(?m)^\s*@pytest\.fixture.*\n", "", src)
+    # a parenthesised import from a sibling test module, on one line
+    src = re.sub(r"(?m)^(\s*)from (test_\w+) import \(([^)]*)\)",
+                 lambda m: f"{m.group(1)}from {m.group(2)} import "
+                           + ", ".join(n.strip() for n in m.group(3).split(",") if n.strip()),
+                 src)
     src = re.sub(r"(?m)^(\s*)from (test_\w+) import (.+)$",
                  lambda m: f"{m.group(1)}{m.group(3)} = _names({m.group(2)!r}, "
                            f"{m.group(3)!r})", src)
@@ -98,6 +153,8 @@ def rebound(name: str, package: str) -> types.ModuleType:
     module = types.ModuleType(f"{name}__{package}")
     module.__file__ = str(path)
     module._on_cpu = lambda fn: functools.partial(fn, device="cpu")
+    if package == PORT:
+        module.__dict__.update(_PORT_NAMES)
 
     def names(other, listed):
         bound = rebound(other, package)
@@ -349,11 +406,14 @@ class TestReadbackThroughACall:
     def test_the_port_raw_pass_flags_the_assign_cycle_and_the_tag_holds(self):
         raw = [v for v in run_repo(root=REPO, rules=["lock-held-dispatch"],
                                    honor_suppressions=False)]
-        # the second is the host-only npz index the metric cache builds
-        # under its lock, tagged as in the reference
-        assert sorted((v.path, "run_cycle(), reaching torch.cuda.synchronize()" in v.message)
-                      for v in raw) == [(f"{PORT}/bridge/server.py", True),
-                                        (f"{PORT}/koordlet/metriccache.py", False)]
+        # the shard Assign's readback inside its demotion guard, tagged as
+        # in the reference; and the host-only npz index the metric cache
+        # builds under its lock, tagged as in the reference
+        assert sorted((v.path, "run_cycle(), reaching torch.cuda.synchronize()" in v.message,
+                       "_assign_shard(), reaching .numpy()" in v.message)
+                      for v in raw) == [(f"{PORT}/bridge/server.py", False, True),
+                                        (f"{PORT}/bridge/server.py", True, False),
+                                        (f"{PORT}/koordlet/metriccache.py", False, False)]
         assert run_repo(root=REPO, rules=["lock-held-dispatch"]) == []
 
 

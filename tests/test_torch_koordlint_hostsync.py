@@ -286,9 +286,31 @@ def test_a_define_built_from_wave_fires():
 
 def test_a_pre_delta_alias_read_after_apply_flat_delta_fires():
     got = _fires(f"{PORT}/bridge/state.py",
-                 "                return apply_flat_delta(dev_arr, update[1], update[2])\n",
+                 "                return apply_flat_delta(dev_arr, update[1], update[2], mesh=mesh)\n",
                  "                before = dev_arr.view(-1)\n"
-                 "                out = apply_flat_delta(dev_arr, update[1], update[2])\n"
+                 "                out = apply_flat_delta(dev_arr, update[1], update[2], mesh=mesh)\n"
                  "                self._pre_delta_sum = before.sum()\n"
                  "                return out\n", "donation-safety")
     assert len(got) == 1 and "'before' aliases 'dev_arr'" in got[0].message
+
+
+# -- the multi-device path's real sites (``parallel/``): shape 5 of
+#    unregistered-jit-boundary and shape 4 of retrace-hazard --
+
+SHARD_ASSIGN = f"{PORT}/parallel/shard_assign.py"
+
+
+@pytest.mark.parametrize("boundary,calls", [("_assign_waves", 2), ("_assign_sharded", 2)])
+def test_a_shard_map_outside_its_boundary_fires(boundary, calls):
+    got = _fires(SHARD_ASSIGN, f'@devprof.boundary("parallel.shard_assign.{boundary}")\n', "",
+                 "unregistered-jit-boundary")
+    assert len(got) == calls
+    assert all("per-shard launch (local_map/shard_map)" in v.message for v in got)
+
+
+@pytest.mark.parametrize("knob", ["mesh", "n_shards"])
+def test_a_mesh_knob_in_a_per_shard_body_fires(knob):
+    got = _fires(SHARD_ASSIGN, "    def apply_body(nreq, nest, choices, committed, preq, pest):\n",
+                 f"    def apply_body(nreq, nest, choices, committed, preq, pest, {knob}=None):\n",
+                 "retrace-hazard")
+    assert len(got) == 1 and f"apply_body() takes '{knob}'" in got[0].message

@@ -726,7 +726,8 @@ def test_mesh_is_refused():
     class Mesh:
         size = 8
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the port cannot shard over (not a parallel.mesh.Mesh)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ScorerServicer(mesh=Mesh(), device="cpu")
 
 

@@ -349,5 +349,6 @@ def test_mesh_is_refused():
     class Mesh:
         size = 4
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the port cannot shard over (not a parallel.mesh.Mesh)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ResidentState(mesh=Mesh(), device="cpu")
