@@ -121,3 +121,12 @@ def build_sync_request(
         req.quotas.used.CopyFrom(numpy_to_tensor(quse))
         req.quotas.limited.CopyFrom(numpy_to_tensor(qlim))
     return req, qids
+
+
+def write_golden(path: str, *args, **kwargs) -> "wire.SyncRequest":
+    """Write ``build_sync_request(*args, **kwargs)``'s request to ``path``
+    as its wire bytes, and return it."""
+    req, _ = build_sync_request(*args, **kwargs)
+    with open(path, "wb") as f:
+        f.write(req.SerializeToString())
+    return req

@@ -105,11 +105,14 @@ _SIG_MAX = 160
 
 
 class _Entry:
-    """One (boundary, signature) row of the build ledger.  ``flops`` stays
-    None: the port has no cost model."""
+    """One (boundary, signature) row of the build ledger, with the
+    reference's keys.  The cost and memory keys (``flops``,
+    ``bytes_accessed``, ``temp_bytes``, ``argument_bytes``,
+    ``output_bytes``) stay None: the port has no cost model."""
 
     __slots__ = ("boundary", "sig", "backend", "source", "compile_ms",
-                 "flops", "first_seen_s")
+                 "flops", "bytes_accessed", "temp_bytes", "argument_bytes",
+                 "output_bytes", "first_seen_s")
 
     def __init__(self, boundary: str, sig: str):
         self.boundary = boundary
@@ -118,6 +121,10 @@ class _Entry:
         self.source: Optional[str] = None
         self.compile_ms: Optional[float] = None
         self.flops: Optional[float] = None
+        self.bytes_accessed: Optional[float] = None
+        self.temp_bytes: Optional[int] = None
+        self.argument_bytes: Optional[int] = None
+        self.output_bytes: Optional[int] = None
         self.first_seen_s = time.time()
 
     def to_dict(self) -> dict:
@@ -439,9 +446,11 @@ def _backend_platform() -> str:
 
 
 def _device_count() -> int:
+    """The devices of ``_backend_platform()``: the CUDA devices, else the
+    one CPU device torch runs on."""
     import torch
 
-    return torch.cuda.device_count()
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
 # -- signatures --

@@ -373,6 +373,14 @@ def score_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P(None, CLUSTER_AXIS))
 
 
+def sparse_score_sharding(mesh: Mesh) -> NamedSharding:
+    """The sparse [P, C] candidate-index / score / feasible tensors: the
+    pod axis (axis 0) split over the pod mesh, the transpose of
+    :func:`score_sharding`, because the sparse engine's scale axis is pods
+    (C is a small static width, never worth splitting)."""
+    return NamedSharding(mesh, P(POD_AXIS, None))
+
+
 def _ndim(a) -> int:
     return len(a.shape)
 

@@ -50,4 +50,5 @@ from koordinator_tpu_torch.replication.journal import (  # noqa: F401
 )
 from koordinator_tpu_torch.replication.retry import (  # noqa: F401
     BackoffPolicy,
+    call_with_retry,
 )

@@ -30,7 +30,7 @@ import dataclasses
 import os
 import random
 import time
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 DEFAULT_BASE_MS = 25.0
 DEFAULT_CAP_MS = 2_000.0
@@ -102,3 +102,31 @@ class BackoffPolicy:
                 return
             attempt += 1
             yield d_ms
+
+
+def call_with_retry(
+    fn: Callable[[], object],
+    policy: BackoffPolicy,
+    retryable: Callable[[BaseException], bool],
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+):
+    """Call ``fn`` until it returns, a non-retryable error raises, or
+    the policy's deadline budget is spent (the LAST error surfaces).
+    ``on_retry(attempt, exc)`` observes each retry (metrics hooks)."""
+    delays = policy.delays(clock=clock)
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except BaseException as exc:
+            if not retryable(exc):
+                raise
+            d_ms = next(delays, None)
+            if d_ms is None:
+                raise
+            if on_retry is not None:
+                on_retry(attempt, exc)
+            attempt += 1
+            sleep(d_ms / 1000.0)

@@ -1295,6 +1295,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# seconds between the main thread's wake-ups while the daemon serves (a
+# signal's Python handler waits at most this long)
+_PARK_S = 0.5
+
+
 def main(argv=None) -> int:
     # every import of this module (torch included) is done by now
     boot = {"imported": time.time()}
@@ -1356,7 +1361,12 @@ def main(argv=None) -> int:
     server.boot = boot
     server.start()
     try:
-        threading.Event().wait()  # koordlint: disable=unbounded-wait(main thread parks forever by design; the server threads own the work and KeyboardInterrupt unparks)
+        # the main thread parks in timed waits: a process-directed SIGUSR1
+        # or SIGUSR2 that the kernel hands to another thread only flags
+        # its Python handler, which runs when the main thread next wakes
+        parked = threading.Event()
+        while not parked.wait(_PARK_S):
+            pass
     except KeyboardInterrupt:
         pass
     finally:

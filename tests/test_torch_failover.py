@@ -8,6 +8,7 @@ no process started under the leg's directory is left.
 """
 
 import contextlib
+import ctypes
 import os
 import shutil
 import signal
@@ -183,4 +184,30 @@ def test_a_daemon_that_dies_fails_the_wait_instead_of_hanging(time_limit):
             d.first_ack(failover.METHOD_SYNC, b"", timeout_s=60)
         assert d.stop() == -signal.SIGKILL
     finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def test_a_promotion_signal_taken_by_another_thread_still_promotes(time_limit):
+    """The kernel may hand a process-directed SIGUSR2 to any thread of the
+    follower; its Python handler runs only in the main thread, which wakes
+    within the daemon's park interval to run it.  Sent to a thread that is
+    not the main one, the signal still promotes."""
+    base = _short_dir()
+    daemons = []
+    try:
+        leader = failover.Daemon(base, "l", device="cpu")
+        daemons.append(leader)
+        leader.wait("the lease", lambda: (leader.get("/healthz") or {}).get("leader"))
+        follower = failover.Daemon(base, "f", device="cpu", replicate_from=leader.repl)
+        daemons.append(follower)
+        follower.wait("the subscription", lambda: (follower.get("/healthz") or {}).get(
+            "replica", {}).get("role") == "follower")
+        pid = follower.proc.pid
+        tid = next(int(t) for t in sorted(os.listdir(f"/proc/{pid}/task")) if int(t) != pid)
+        assert ctypes.CDLL(None, use_errno=True).tgkill(pid, tid, signal.SIGUSR2) == 0
+        follower.wait("the promotion", lambda: (follower.get("/healthz") or {}).get(
+            "replica", {}).get("promoted"), timeout_s=30.0)
+    finally:
+        for daemon in reversed(daemons):
+            daemon.stop()
         shutil.rmtree(base, ignore_errors=True)

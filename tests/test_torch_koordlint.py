@@ -19,11 +19,13 @@ finds nothing and the suppression audit is clean.  The codec
 import contextlib
 import functools
 import inspect
+import itertools
 import os
 import re
 import subprocess
 import sys
 import textwrap
+import time
 import types
 from pathlib import Path
 
@@ -33,6 +35,10 @@ import torch
 from koordinator_tpu_torch.analysis import RULES, lockdispatch, lockgraph
 from koordinator_tpu_torch.analysis.core import run_repo, run_rules_on_source
 from koordinator_tpu_torch.parallel.mesh import snapshot_leaves, visible_devices
+from koordinator_tpu_torch.solver import greedy_assign_dense, greedy_assign_wide
+from koordinator_tpu_torch import _build
+from koordinator_tpu_torch.obs import devprof
+from test_torch_devprof import BOUNDARIES as PORT_BOUNDARIES
 from test_torch_constraints import _ON_CPU, PACKAGES
 
 TESTS = Path(__file__).resolve().parent
@@ -57,11 +63,52 @@ _PORT_READS = (
 # entry points beside ``_ON_CPU`` that take a device: the port binding runs
 # them on the CPU (a mesh built without devices spans the CPU's forced
 # host-platform devices, as ``jax.devices()`` does under tests/conftest.py)
-_PORT_ON_CPU = ("SchedulerServer", "make_mesh", "cluster_mesh", "pod_mesh")
+_PORT_ON_CPU = ("SchedulerServer", "make_mesh", "cluster_mesh", "pod_mesh",
+                "RawUdsServer", "serve_raw_uds", "serve_uds", "make_server",
+                "generators.quota_colocation_snapshot", "encode_quota_lists")
+
+
+def _plain_kernel(entry):
+    """A Pallas entry point's counterpart: the port's kernel entry, which
+    runs the kernel's plain version on a CPU snapshot (``interpret=`` has
+    nothing to choose there)."""
+    def call(*args, interpret=False, **kwargs):
+        return entry(*args, **kwargs)
+    return call
+
+
+def _kernel_like(fn):
+    """A ``jax.jit`` function's counterpart in the port's idiom: a torch
+    function whose first call for each argument signature builds a kernel
+    variant, as a kernel wrapper's ``_build.build`` does for a new variant,
+    and whose later calls find it built.  The build is reported to
+    ``_build``'s listeners, with the seconds the first call took."""
+    built = set()
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        sig = devprof.shape_signature(args, kwargs)
+        if sig in built:
+            return fn(*args, **kwargs)
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        built.add(sig)
+        for listener in list(_build._BUILD_LISTENERS):
+            listener("kernel_like.cu", (f"SIG={sig}",), time.perf_counter() - start)
+        return out
+
+    return call
+
 
 # the JAX objects a reference case speaks of, and the port's counterparts
-# its edits below name (ROADMAP Queue C "The in-process mesh")
+# its edits below name (ROADMAP Queue C "The in-process mesh"): K2 and K3
+# stand where the reference's Pallas wide kernel stands, K1 where its
+# dense one stands
 _PORT_NAMES = {
+    "_kernel_like": _kernel_like,
+    "_port_boundaries": frozenset(PORT_BOUNDARIES),
+    "_plain_wide": _plain_kernel(greedy_assign_wide),
+    "_plain_dense": _plain_kernel(greedy_assign_dense),
     "_visible_devices": lambda: visible_devices("cpu"),
     "_mesh_scope": contextlib.nullcontext,
     "_tree_leaves": snapshot_leaves,
@@ -75,11 +122,29 @@ _MESH_EDITS = (
     ("jax.devices()", "_visible_devices()"),
 )
 
+# ``jnp.ones/zeros/full/asarray`` take their dtype positionally,
+# ``torch``'s by keyword: ``(shape or data[, fill], dtype)`` becomes
+# ``(shape or data[, fill], dtype=dtype)``
+_POSITIONAL_DTYPE = (
+    re.compile(r"(jnp\.(?:ones|zeros|full|asarray)\((?:[^()]|\([^()]*\))*?), "
+               r"(bool|jnp\.\w+)\)"),
+    r"\1, dtype=\2)",
+)
+
+# the reference's Pallas kernels and their demotion store, and the port's
+# kernels (run as their plain versions on the CPU) and the ladder's store
+_PALLAS_IMPORTS = (
+    ("from koordinator_tpu_torch.solver.pallas_cycle import greedy_assign_pallas as _wide",
+     "_wide = _plain_wide"),
+    ("from koordinator_tpu_torch.solver.pallas_dense import greedy_assign_dense as _dense",
+     "_dense = _plain_dense"),
+)
+
 # edits a reference module needs to run on the port, each a stated
 # difference (ROADMAP Queue C): ``torch.full`` takes its dtype by keyword,
 # where ``jnp.full`` takes it third; the mesh cases name the port's mesh
-# objects (``_PORT_NAMES``), its arrays (``torch.as_tensor``), a generator
-# that takes a device, and the kernel ladder's demotion store
+# objects (``_PORT_NAMES``), its arrays (``torch.as_tensor``) and the
+# kernel ladder's demotion store
 _PORT_EDITS = {
     "test_e2e_smoke": (
         ("POLICY_SINGLE_NUMA_NODE, jnp.int32", "POLICY_SINGLE_NUMA_NODE, dtype=jnp.int32"),
@@ -88,8 +153,6 @@ _PORT_EDITS = {
         ("    with mesh:\n", "    with _mesh_scope(mesh):\n"),
         ("jax.numpy.asarray(", "torch.as_tensor("),
         ("jax.numpy.int64", "torch.int64"),
-        ("generators.quota_colocation_snapshot(pods=512, nodes=128)",
-         "generators.quota_colocation_snapshot(pods=512, nodes=128, device='cpu')"),
     ),
     "test_mesh_resident": _MESH_EDITS + (
         ("from jax.sharding import PartitionSpec as P",
@@ -108,11 +171,75 @@ _PORT_EDITS = {
     "test_parity_fuzz": _MESH_EDITS,
     "test_terms": _MESH_EDITS,
     "test_resident_warm": _MESH_EDITS,
+    "test_solver": (
+        ("solver.pallas_demotions()", "solver.kernel_demotions()"),
+    ),
+    # positional dtypes, and a functional ``.at[...].set``, which is
+    # ``index_fill`` in ``torch``
+    "test_framework": (
+        _POSITIONAL_DTYPE,
+        ("m.at[:, 0].set(False)", "m.index_fill(1, jnp.tensor([0]), False)"),
+        ("s.at[:, 1].set(100)", "s.index_fill(1, jnp.tensor([1]), 100)"),
+    ),
+    "test_scoring": (_POSITIONAL_DTYPE,),
+    "test_services_daemon": (_POSITIONAL_DTYPE,),
+    # ``torch`` makes a scalar with ``tensor``, where ``jnp`` calls the dtype
+    "test_wave": (
+        _POSITIONAL_DTYPE,
+        ("jnp.int64(s), feas, jnp.int64(i)",
+         "jnp.tensor(s, dtype=jnp.int64), feas, jnp.tensor(i, dtype=jnp.int64)"),
+        ("jnp.int32(-1), jnp.bool_(True)", "jnp.tensor(-1, dtype=jnp.int32), jnp.tensor(True)"),
+    ),
+    "test_pallas_cycle": _PALLAS_IMPORTS,
+    "test_loadaware_profiles": _MESH_EDITS + (
+        ("from koordinator_tpu_torch.solver.pallas_cycle import greedy_assign_pallas",
+         "greedy_assign_pallas = _plain_wide"),
+        ("from jax.sharding import Mesh", "from koordinator_tpu_torch.parallel.mesh import Mesh"),
+    ),
+    # the port's launch notes name a kernel's build ``build_ms``, where the
+    # reference's name an XLA compile ``compile_ms``
+    "test_trace_export": (
+        ('"compile_ms": 312.5', '"build_ms": 312.5'),
+        ('"compile=312.50ms"', '"build=312.50ms"'),
+    ),
+    # a test function under a launch boundary is a torch function that
+    # builds a kernel on a new signature (``_kernel_like``), where the
+    # reference's is a ``jax.jit`` program that compiles; the port's builds
+    # are CUDA kernels, recorded ``backend="cuda"``, its report names them a
+    # build ledger and a boundary's second build a rebuild, and its serving
+    # boundaries stand where the reference's stand (``obs/devprof.py``)
+    "test_devprof": (
+        ("    @jax.jit\n", "    @_kernel_like\n"),
+        ('assert entry["backend"] == "cpu"', 'assert entry["backend"] == "cuda"'),
+        ('assert ev["backend"] == "cpu"', 'assert ev["backend"] == "cuda"'),
+        ('"compile ledger:"', '"build ledger:"'),
+        ('"attributed retraces (1):"', '"attributed rebuilds (1):"'),
+        ('"koordinator_tpu_torch.solver.pallas_cycle",\n            '
+         '"koordinator_tpu_torch.solver.pallas_dense",',
+         '"koordinator_tpu_torch.solver.wide",\n            "koordinator_tpu_torch.solver.dense",'),
+        ("assert found == _EXPECTED", "assert found == _port_boundaries"),
+    ),
+    "test_prewarm": (
+        ("    @jax.jit\n", "    @_kernel_like\n"),
+    ),
+    # the port compiles no program for a fresh ``jax.jit`` to miss on
+    "test_obs": (
+        ("jax.jit(lambda x: x * 3 + 1)(jnp.arange(7))", "(lambda x: x * 3 + 1)(jnp.arange(7))"),
+    ),
     "test_candidates": _MESH_EDITS + (
         ("sparse_top_k(s_sp, f_sp, cand, k=k, hi=hi)",
          "sparse_top_k(torch.as_tensor(s_sp), torch.as_tensor(f_sp), cand, k=k, hi=hi)"),
     ),
 }
+
+
+def _fixture(fn=None, *, scope="function", autouse=False, params=None, **_):
+    """``pytest.fixture`` in a rebound module: the function stays plain
+    and carries its scope, ``autouse`` and ``params`` for ``run_case``."""
+    def mark(f):
+        f._fixture = types.SimpleNamespace(scope=scope, autouse=autouse, params=params)
+        return f
+    return mark(fn) if callable(fn) else mark
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,7 +255,7 @@ def rebound(name: str, package: str) -> types.ModuleType:
     given ``device="cpu"``."""
     path = TESTS / f"{name}.py"
     src = path.read_text()
-    src = re.sub(r"(?m)^\s*@pytest\.fixture.*\n", "", src)
+    src = re.sub(r"(?m)^(\s*)@pytest\.fixture(.*)\n", r"\1@_fixture\2\n", src)
     # a parenthesised import from a sibling test module, on one line
     src = re.sub(r"(?m)^(\s*)from (test_\w+) import \(([^)]*)\)",
                  lambda m: f"{m.group(1)}from {m.group(2)} import "
@@ -146,13 +273,18 @@ def rebound(name: str, package: str) -> types.ModuleType:
         src = src.replace("from koordinator_tpu import", "from koordinator_tpu_torch import")
         src = src.replace("import jax.numpy as jnp", "import torch as jnp")
         for before, after in _PORT_EDITS.get(name, ()):
+            if isinstance(before, re.Pattern):
+                src, count = before.subn(after, src)
+                assert count, (name, before.pattern)
+                continue
             assert before in src, (name, before)
             src = src.replace(before, after)
-        src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(_ON_CPU + _PORT_ON_CPU),
+        src = re.sub(r"(?<![\w.])(%s)\(" % "|".join(map(re.escape, _ON_CPU + _PORT_ON_CPU)),
                      r"_on_cpu(\1)(", src)
     module = types.ModuleType(f"{name}__{package}")
     module.__file__ = str(path)
     module._on_cpu = lambda fn: functools.partial(fn, device="cpu")
+    module._fixture = _fixture
     if package == PORT:
         module.__dict__.update(_PORT_NAMES)
 
@@ -166,36 +298,138 @@ def rebound(name: str, package: str) -> types.ModuleType:
     return module
 
 
-def run_case(module, cls, method, package, **given):
+def _parametrize_marks(fn, owner):
+    """The ``parametrize`` marks on a test and on its class, in the order
+    their indices are given to ``run_case``."""
+    marks = list(getattr(fn, "pytestmark", ())) + list(getattr(owner, "pytestmark", ()))
+    return [m for m in marks if m.name == "parametrize"]
+
+
+def _spec(obj):
+    """What ``_fixture`` recorded on ``obj``, or None for a non-fixture."""
+    return getattr(obj, "_fixture", None)
+
+
+def _fixture_params(mod, instance, fn):
+    """The names of the test's parameters that are fixtures with
+    ``params`` (each case runs once for each of their values)."""
+    return [name for name in inspect.signature(fn).parameters
+            if (spec := _spec(getattr(instance, name, None) or getattr(mod, name, None)))
+            and spec.params is not None]
+
+
+def _parameters(mark, index):
+    names = mark.args[0]
+    names = [n.strip() for n in names.split(",")] if isinstance(names, str) else list(names)
+    value = mark.args[1][index]
+    value = value.values if hasattr(value, "values") and hasattr(value, "marks") else value
+    return dict(zip(names, value)) if len(names) > 1 else {names[0]: value}
+
+
+def run_case(module, cls, method, package, *, param=(), shared=None, **given):
     """One test method of a rebound reference module (a module-level test
-    function when ``cls`` is empty).  Each parameter is
-    taken from ``given`` (pytest's own fixtures), else from the class's or
-    the module's fixture of that name, called with its own parameters
-    resolved the same way; a generator fixture runs to its yield and is
-    closed after the case."""
+    function when ``cls`` is empty).
+
+    ``param`` indexes each ``parametrize`` mark of the test and its class,
+    and the values are taken from the rebound module, so each package's
+    case gets its own objects.  Each parameter is taken from ``given``
+    (pytest's own fixtures, or a case's parameters), else from the class's
+    or the module's fixture of that name, called with its own parameters
+    resolved the same way; a fixture with ``params`` is given a
+    ``request`` whose ``param`` is the value ``given`` names.  The
+    module's and the class's ``autouse`` fixtures run first.  A generator
+    fixture runs to its yield and is closed after the case, or, when its
+    scope is ``class`` or ``module`` and the caller passes a ``shared``
+    dict, is kept there for the next case of the same file (the caller
+    closes it with ``close_shared``)."""
     mod = rebound(module, package)
-    instance = getattr(mod, cls)() if cls else None
+    owner = getattr(mod, cls) if cls else None
+    instance = owner() if cls else None
     fn = getattr(instance, method) if cls else getattr(mod, method)
+    marks = _parametrize_marks(fn, owner)
+    for mark, index in zip(marks, param):
+        given = {**_parameters(mark, index), **given}
+    for name, index in zip(_fixture_params(mod, instance, fn), param[len(marks):]):
+        given = {name: _spec(getattr(mod, name)).params[index], **given}
     open_fixtures = []
 
-    def resolve(fixture):
-        kwargs = {}
+    def value_of(name):
+        fixture = getattr(instance, name, None) or getattr(mod, name, None)
+        spec = _spec(fixture)
+        if name in given and (spec is None or spec.params is None):
+            return given[name]
+        key = (module, package, cls if spec and spec.scope == "class" else "", name)
+        keep = shared is not None and spec is not None and spec.scope in ("class", "module")
+        if keep and key in shared:
+            return shared[key][0]
+        extra = {}
+        if spec is not None and spec.params is not None:
+            extra["request"] = types.SimpleNamespace(param=given[name])
+        value = resolve(fixture, extra)
+        gen = value if inspect.isgenerator(value) else None
+        if gen is not None:
+            value = next(gen)
+        if keep:
+            shared[key] = (value, gen)
+        elif gen is not None:
+            open_fixtures.append(gen)
+        return value
+
+    def resolve(fixture, extra=None):
+        kwargs = dict(extra or {})
         for name in inspect.signature(fixture).parameters:
-            if name in given:
-                kwargs[name] = given[name]
-                continue
-            value = resolve(getattr(instance, name, None) or getattr(mod, name))
-            if inspect.isgenerator(value):
-                open_fixtures.append(value)
-                value = next(value)
-            kwargs[name] = value
+            if name not in kwargs:
+                kwargs[name] = value_of(name)
         return fixture(**kwargs)
 
     try:
+        autouse = [name for name, obj in list(vars(mod).items())
+                   + (list(vars(owner).items()) if owner else [])
+                   if (spec := _spec(obj)) and spec.autouse]
+        for name in autouse:
+            value_of(name)
         resolve(fn)
     finally:
         for gen in reversed(open_fixtures):
             next(gen, None)
+
+
+def close_shared(shared):
+    """Close the class- and module-scoped fixtures ``run_case`` kept."""
+    for _value, gen in reversed(list(shared.values())):
+        if gen is not None:
+            next(gen, None)
+    shared.clear()
+
+
+def file_cases(name):
+    """Every case of the reference test module ``tests/<name>.py``, in
+    source order: ``(name, class, method, param)``, the class empty for a
+    module-level test and ``param`` one index into each ``parametrize``
+    mark (see ``run_case``)."""
+    module = rebound(name, "koordinator_tpu")
+    own = [(n, obj) for n, obj in vars(module).items()
+           if getattr(obj, "__module__", None) == module.__name__]
+    tests = [("", n, obj, None) for n, obj in own
+             if n.startswith("test_") and inspect.isfunction(obj)]
+    tests += [(cls_name, n, fn, cls) for cls_name, cls in own
+              if cls_name.startswith("Test") and inspect.isclass(cls)
+              for n, fn in vars(cls).items() if n.startswith("test_") and callable(fn)]
+    cases = []
+    for cls_name, method, fn, owner in tests:
+        sizes = [len(m.args[1]) for m in _parametrize_marks(fn, owner)]
+        sizes += [len(_spec(getattr(module, name)).params)
+                  for name in _fixture_params(module, owner, fn)]
+        for param in itertools.product(*(range(n) for n in sizes)):
+            cases.append((name, cls_name, method, param))
+    return cases
+
+
+def case_name(case):
+    """A case's test id: ``Class::method`` and its parameter indices."""
+    _module, cls, method, param = case
+    label = f"{cls}::{method}" if cls else method
+    return label + (f"[{'-'.join(map(str, param))}]" if param else "")
 
 
 def reference_cases(name, classes, skip=()):
