@@ -103,9 +103,21 @@ Phases (any failure raises and exits non-zero, printing no result):
     device busy share and its split by kernel family); an exported pass
     assembled with no incomplete trace; and the trace at the headline
     cluster size (2,000 nodes x 10,000 pod slots, 24 events, 25 parity
-    checks, three K2 launches held against the plain version).  Every
-    pass checks the engine's Syncs by kind.  The ``kernels`` line carries each kernel's launches on the
-    trace path (``trace_launches``);
+    checks, three K2 launches held against the plain version); then the
+    fused terms under traffic: the accelerator trace drawn with the term
+    events (``TRACE_TERMS_CFG``, ``mix=TERM_MIX``, two accelerator types,
+    three workload classes; its digest the reference's) replayed over the
+    raw framing with ``default_term_config()`` (``terms``: every Assign on
+    K2) and with it at ``wave=32, top_m=4`` (``terms_wave``: every Assign
+    on K3), each with 97 parity checks, no build and no demotion, exactly
+    one launch of its kernel and one ``term_extras`` per Assign and none
+    of the others, and the engine's launches of the cold and the last
+    step exact against their plain version
+    (``cycle_wide_reference``, ``wave_cycle_reference`` with its round
+    count) on their own inputs.  Every pass checks the engine's Syncs by
+    kind.  The ``kernels`` line carries each kernel's launches on the
+    trace path (``trace_launches``: the raw replay's and the term
+    replays');
 13. (run before phase 10's lines) ``extras``: the extended-plugin Assign
     cycle (the reference's ``bench.py --config extras``): at the anchor
     recipe the composed mask and scores and the cycle on K2 and on K1 equal
@@ -319,6 +331,7 @@ and exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -1563,6 +1576,9 @@ class K2Tap:
     ``cycle_wide_reference`` on the CPU on each kept launch's inputs and
     fails on any difference in its four outputs."""
 
+    KERNEL, LAUNCH, PLAIN = "K2", "cycle_wide_cuda", "cycle_wide_reference"
+    FIELDS = ("chosen", "nreq", "nest", "quse")
+
     def __init__(self, keep):
         self.keep = frozenset(keep)
         self.records = {}
@@ -1571,46 +1587,78 @@ class K2Tap:
     def __enter__(self):
         from koordinator_tpu_torch.solver import wide
 
-        self._wide, self._launch = wide, wide.cycle_wide_cuda
+        self._wide, self._launch = wide, getattr(wide, self.LAUNCH)
 
-        def tapped(inp, cfg, defines=()):
+        def tapped(inp, cfg, *args, **kwargs):
             i, self.seen = self.seen, self.seen + 1
             if i not in self.keep:
-                return self._launch(inp, cfg, defines)
+                return self._launch(inp, cfg, *args, **kwargs)
             held = tensors_to(inp, lambda t: t.clone())
-            outs = self._launch(inp, cfg, defines)
-            self.records[i] = (held, cfg, tuple(o.clone() for o in outs))
+            outs = self._launch(inp, cfg, *args, **kwargs)
+            self.records[i] = (held, cfg, args, tuple(o.clone() for o in outs))
             return outs
 
-        wide.cycle_wide_cuda = tapped
+        setattr(wide, self.LAUNCH, tapped)
         return self
 
     def __exit__(self, *exc):
-        self._wide.cycle_wide_cuda = self._launch
+        setattr(self._wide, self.LAUNCH, self._launch)
         return False
 
     def check(self, name):
         import torch
 
+        k = self.KERNEL
         if set(self.records) != self.keep:
-            raise AssertionError(f"trace {name}: K2 launches {sorted(self.keep - set(self.records))}"
-                                 f" of {sorted(self.keep)} never ran ({self.seen} launches)")
+            raise AssertionError(f"trace {name}: {k} launches "
+                                 f"{sorted(self.keep - set(self.records))} of "
+                                 f"{sorted(self.keep)} never ran ({self.seen} launches)")
+        plain = getattr(self._wide, self.PLAIN)
         t0 = time.perf_counter()
         err = 0
-        for i, (inp, cfg, outs) in sorted(self.records.items()):
-            want = self._wide.cycle_wide_reference(tensors_to(inp, lambda t: t.cpu()), cfg)
+        for i, (inp, cfg, args, outs) in sorted(self.records.items()):
+            want = plain(tensors_to(inp, lambda t: t.cpu()), cfg, *args)
             got = tuple(o.cpu() for o in outs)
-            for field, a, b in zip(("chosen", "nreq", "nest", "quse"), got, want):
+            if len(got) != len(self.FIELDS) or len(want) != len(self.FIELDS):
+                raise AssertionError(f"trace {name}: {k} launch {i} gave {len(got)} outputs, "
+                                     f"plain {len(want)}, want {len(self.FIELDS)}")
+            for field, a, b in zip(self.FIELDS, got, want):
                 if a.shape != b.shape or a.dtype != b.dtype:
-                    raise AssertionError(f"trace {name}: K2 launch {i} {field} is "
+                    raise AssertionError(f"trace {name}: {k} launch {i} {field} is "
                                          f"{a.dtype}{list(a.shape)}, plain {b.dtype}{list(b.shape)}")
             err = max(err, max_abs_err(got, want))
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"trace {name}: K2 launch {i} differs from its plain "
+                raise AssertionError(f"trace {name}: {k} launch {i} differs from its plain "
                                      f"version (max abs err {max_abs_err(got, want)})")
         return {"launches_held": sorted(self.keep), "of_launches": self.seen,
-                "plain": "cycle_wide_reference on the CPU", "max_abs_err": err,
+                "plain": f"{self.PLAIN} on the CPU", "max_abs_err": err,
                 "plain_s": time.perf_counter() - t0}
+
+
+class K3Tap(K2Tap):
+    """``K2Tap`` for K3: ``wide.wave_cycle_cuda`` held against
+    ``wave_cycle_reference`` on its five outputs, the round count among
+    them."""
+
+    KERNEL, LAUNCH, PLAIN = "K3", "wave_cycle_cuda", "wave_cycle_reference"
+    FIELDS = ("chosen", "nreq", "nest", "quse", "rounds")
+
+
+@contextlib.contextmanager
+def counting(module, name):
+    """Inside ``with``, ``module.<name>`` counts its calls in the yielded
+    one-element list."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def tensors_to(inp, move):
@@ -1632,17 +1680,21 @@ def trace_phase(card, dev):
 
     from koordinator_tpu_torch.bridge.server import ScorerServicer
     from koordinator_tpu_torch.bridge.udsserver import METHOD_PROFILE, RawUdsServer
+    from koordinator_tpu_torch import solver
     from koordinator_tpu_torch.harness.anchor import (
         TRACE_ANCHOR_CFG, TRACE_ANCHOR_SHA256, TRACE_HEADLINE_CFG, TRACE_HEADLINE_SHA256,
+        TRACE_TERMS_CFG, TRACE_TERMS_SHA256,
     )
     from koordinator_tpu_torch.harness.trace import (
-        TraceConfig, TraceReplay, default_slo_specs, generate_trace, tensor_sync_events,
+        TERM_MIX, TraceConfig, TraceReplay, default_slo_specs, generate_trace,
+        tensor_sync_events,
     )
     from koordinator_tpu_torch.obs import devprof
     from koordinator_tpu_torch.obs.assemble import assemble
     from koordinator_tpu_torch.obs.scorer_metrics import SYNC_TOTAL, TRACE_CYCLE
     from koordinator_tpu_torch.obs.slo import evaluate_slos, slos_pass
     from koordinator_tpu_torch.solver import kernel_demotions
+    from koordinator_tpu_torch.solver.terms import default_term_config
 
     line = {"card": card, "transport": "raw UDS through ScorerClient('raw://...')"}
     tensor_events = {}
@@ -1673,15 +1725,15 @@ def trace_phase(card, dev):
                 "builds": report.builds, "demotions": report.retraces, "syncs": syncs,
                 "wall_ms": report.wall_ms, "latency_ms": replay_latency(report)}
 
-    def held(name, trace, steps, **kw):
+    def held(name, trace, steps, tap=K2Tap, **kw):
         """A replay (warm-up and oracle on: one engine and one oracle
-        Assign a step, each one K2 launch) whose engine K2 launches of the
-        measured pass at ``steps`` (0 = the cold step) are held against the
-        plain version."""
+        Assign a step, each one launch of the kernel ``tap`` holds) whose
+        engine launches of the measured pass at ``steps`` (0 = the cold
+        step) are held against the plain version."""
         first = 2 * (len(trace.events) + 1)  # the warm-up pass's launches
-        with K2Tap(first + 2 * s for s in steps) as tap:
+        with tap(first + 2 * s for s in steps) as tapped:
             report = TraceReplay(trace, **kw).run()
-        return report, tap.check(name)
+        return report, tapped.check(name)
 
     # 1. the reference's accelerator trace, raw transport
     trace = generate_trace(TraceConfig(**TRACE_ANCHOR_CFG))
@@ -1849,7 +1901,45 @@ def trace_phase(card, dev):
     if big_line["launches"]["cycle_wide"] != 2 * 2 * (len(big.events) + 1):
         raise AssertionError(f"trace headline: launches {big_line['launches']}")
     line["headline"] = {**TRACE_HEADLINE_CFG, "digest": big.digest(), **big_line}
-    return line, launches["cycle_wide"]
+
+    # 7. the fused terms under traffic: the accelerator trace drawn with the
+    # term events, its Assigns on K2 (``terms``), then on K3 (``terms_wave``)
+    term_trace = generate_trace(TraceConfig(**TRACE_TERMS_CFG, mix=TERM_MIX))
+    if term_trace.digest() != TRACE_TERMS_SHA256:
+        raise AssertionError(f"term trace digest {term_trace.digest()} != {TRACE_TERMS_SHA256}")
+    steps = len(term_trace.events) + 1
+    want = 2 * 2 * steps  # two passes, engine and oracle, one launch an Assign
+    traced = {"cycle_wide": launches["cycle_wide"], "wave_cycle": 0}
+    t_terms = time.perf_counter()
+    for name, cfg, kernel, tap in (
+        ("terms", default_term_config(), "cycle_wide", K2Tap),
+        ("terms_wave", dataclasses.replace(default_term_config(), **WAVE_CFG), "wave_cycle",
+         K3Tap),
+    ):
+        reset_counts()
+        with counting(solver, "term_extras") as extras_calls:
+            report, plain = held(name, term_trace, (0, steps - 1), tap=tap,
+                                 transport="raw", engine_kw={"cfg": cfg})
+        counts = kernel_counts()
+        if counts != {k: want if k == kernel else 0 for k in counts}:
+            raise AssertionError(f"trace {name}: Assigns launched {counts}, want {want} of "
+                                 f"{kernel} alone")
+        if extras_calls[0] != want:
+            raise AssertionError(f"trace {name}: term_extras ran {extras_calls[0]} times, "
+                                 f"want one an Assign ({want})")
+        term_line = checked(name, term_trace, report)
+        term_line.update(
+            digest=term_trace.digest(), launches=counts, term_extras_launches=extras_calls[0],
+            launches_note=(f"2 passes (warm-up, measured) x {steps} steps x 2 servicers, one "
+                           f"{tap.KERNEL} launch and one term_extras per Assign"),
+            **{f"{tap.KERNEL.lower()}_vs_plain": plain})
+        line[name] = {**TRACE_TERMS_CFG, "mix": "TERM_MIX",
+                      "cycle_config": ("default_term_config()" if kernel == "cycle_wide" else
+                                       "default_term_config(), wave=32, top_m=4"),
+                      **term_line}
+        traced[kernel] += want
+    line["terms_seconds"] = time.perf_counter() - t_terms
+    return line, traced
 
 
 # The hooks pass of the ``extras`` line: QoS LSR on every LSR_EVERY-th pod
@@ -4199,15 +4289,15 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
     return line, launches
 
 
-ONLY_LINES = ("failover", "coldstart", "mesh")
+ONLY_LINES = ("trace", "failover", "coldstart", "mesh")
 
 
 def only_lines(names) -> int:
-    """``python3 chip_smoke.py --only failover,coldstart,mesh``: those lines
-    alone, after the card line, the kernels' builds and phase 4's headline
-    ``run_cycle(snap)`` (exact against ``greedy_assign``), which the
-    ``failover`` line holds its recovered daemons to and the ``mesh`` line
-    its sharded cycles (with the wave headline's K3 rounds)."""
+    """``python3 chip_smoke.py --only trace,failover,coldstart,mesh``: those
+    lines alone, after the card line, the kernels' builds and phase 4's
+    headline ``run_cycle(snap)`` (exact against ``greedy_assign``), which
+    the ``failover`` line holds its recovered daemons to and the ``mesh``
+    line its sharded cycles (with the wave headline's K3 rounds)."""
     import torch
 
     from koordinator_tpu_torch import _build
@@ -4235,7 +4325,9 @@ def only_lines(names) -> int:
     phase_s["headline"] = time.perf_counter() - t0
     for name in names:
         t0 = time.perf_counter()
-        if name == "failover":
+        if name == "trace":
+            line, _ = trace_phase(card, torch.device("cuda"))
+        elif name == "failover":
             line, _ = failover_phase(card, cluster_lists, result)
         elif name == "mesh":
             line, _ = mesh_phase(card, torch.device("cuda"), snap, cluster_lists, result,
@@ -4581,7 +4673,7 @@ def main() -> int:
     phase_done("11_bridge")
 
     # phase 12: the trace replay through ScorerClient
-    trace_line, k2_trace_launches = trace_phase(card, dev)
+    trace_line, trace_launches = trace_phase(card, dev)
     print(json.dumps({"trace": trace_line}))
     phase_done("12_trace")
 
@@ -4662,15 +4754,15 @@ def main() -> int:
          k1_plain_ms, k1_bound, k1_bound_by),
         ("cycle_wide", "koordinator_tpu_torch/solver/cycle_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:180", k2_launches,
-         (k2_trace_launches, extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
+         (trace_launches["cycle_wide"], extras_launches["K2"], k2_rebalance, k2_daemon, k2_chaos,
           k2_tree, k2_preempt, k2_lint, k2_koordlet, cp_n["cycle_wide"], fo_n["cycle_wide"],
           cs_n["cycle_wide"], me_n["cycle_wide"]), k2_err, k2_ms,
          k2_plain_ms, k2_bound, k2_bound_by),
         ("wave_cycle", "koordinator_tpu_torch/solver/cycle_wide_cuda.cu",
          "koordinator_tpu/solver/pallas_cycle.py:347", k3_launches,
-         (0, 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"], fo_n["wave_cycle"],
-          cs_n["wave_cycle"], me_n["wave_cycle"]), k3_err, k3_ms, k3_plain_ms, k3_bound,
-         k3_bound_by),
+         (trace_launches["wave_cycle"], 0, 0, 0, 0, 0, 0, 0, 0, cp_n["wave_cycle"],
+          fo_n["wave_cycle"], cs_n["wave_cycle"], me_n["wave_cycle"]), k3_err, k3_ms,
+         k3_plain_ms, k3_bound, k3_bound_by),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

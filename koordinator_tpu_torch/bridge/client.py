@@ -7,7 +7,7 @@ assignments back.  Messages are ``bridge/wire.py``'s, so no protobuf
 runtime is needed.  Two channels carry them:
 
 * **gRPC** (``unix:///path.sock`` or ``host:port``, as in the reference):
-  generic unary stubs on the service ``bridge/server.py SERVICE`` whose
+  generic unary stubs on the service ``bridge/wire.py SERVICE`` whose
   serialisers are the codec's.  ``grpc`` is imported only by
   :func:`_grpc_channel`, which builds such a channel.
 * **raw** (``raw:///path.sock``): the framing of ``bridge/udsserver.py``
@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from koordinator_tpu_torch.bridge import udsserver, wire
-from koordinator_tpu_torch.bridge.server import SERVICE, StatusCode
+from koordinator_tpu_torch.bridge.server import StatusCode
 from koordinator_tpu_torch.bridge.state import numpy_to_tensor
 from koordinator_tpu_torch.obs.export import SpanExporter, resolve_export_dir
 from koordinator_tpu_torch.obs.lockwitness import witness_lock, witness_rlock
@@ -141,10 +141,12 @@ def _is_not_leader(exc: BaseException) -> bool:
 
 def retry_after_ms(exc: BaseException) -> Optional[float]:
     """The machine-parsable ``retry_after_ms=<n>`` hint a shed or
-    breaker-open reply carries, or None."""
-    if not isinstance(exc, RpcError):
+    breaker-open reply carries, or None: the port's ``RpcError``, or a
+    ``grpc.RpcError`` (any error whose ``details()`` is the status's)."""
+    details = getattr(exc, "details", None)
+    if not isinstance(exc, Exception) or not callable(details):
         return None
-    m = _RETRY_AFTER_RE.search(exc.details() or "")
+    m = _RETRY_AFTER_RE.search(details() or "")
     return float(m.group(1)) if m else None
 
 
@@ -261,6 +263,14 @@ class _RawChannel:
             self._drop_locked()
 
 
+@functools.lru_cache(maxsize=None)
+def _grpc_rpc_error(grpc_error: type) -> type:
+    """The error the gRPC channel raises: the port's ``RpcError`` that is
+    also a ``grpc.RpcError``, so a caller catches it as the reference's
+    client's error (built here, where ``grpc`` is imported)."""
+    return type("GrpcRpcError", (RpcError, grpc_error), {"__module__": __name__})
+
+
 def _grpc_channel(target: str, slot: int) -> _Channel:
     """A gRPC channel to ``target`` with one generic unary stub per
     method.  Each pool slot carries a distinct ``koord.pool_slot`` channel
@@ -279,12 +289,14 @@ def _grpc_channel(target: str, slot: int) -> _Channel:
     )
     stubs = {
         method: channel.unary_unary(
-            f"/{SERVICE}/{method}",
+            wire.method_path(method),
             request_serializer=lambda msg: msg.SerializeToString(),
             response_deserializer=reply_cls.FromString,
         )
         for method, (_, reply_cls) in _METHODS.items()
     }
+
+    error = _grpc_rpc_error(grpc.RpcError)
 
     def call(method: str, request, timeout: float):
         try:
@@ -292,8 +304,7 @@ def _grpc_channel(target: str, slot: int) -> _Channel:
         except grpc.RpcError as exc:
             status = exc.code()
             code = getattr(StatusCode, getattr(status, "name", ""), None)
-            raise RpcError(code or StatusCode.UNKNOWN,
-                           exc.details() or "") from exc
+            raise error(code or StatusCode.UNKNOWN, exc.details() or "") from exc
 
     return _Channel(call, channel.close)
 
@@ -773,11 +784,12 @@ class ScorerClient:
                     "sync", build(baseline, full=False), op=op
                 )
             except RpcError as exc:
-                if _is_transient(exc):
-                    # a channel-level failure that outlived the retry
-                    # budget: the BASELINE IS KEPT — nothing verifiably
-                    # applied; the continuity check below guards the
-                    # ambiguous-apply case on the next sync
+                if _is_transient(exc) or _is_not_leader(exc):
+                    # a channel-level failure that outlived the retry and
+                    # probe budget (its last answer may be a follower's
+                    # "one writer" refusal): the BASELINE IS KEPT — nothing
+                    # verifiably applied; the continuity check below guards
+                    # the ambiguous-apply case on the next sync
                     raise
                 if not baseline:
                     # nothing was delta-encoded; resending full state

@@ -90,7 +90,6 @@ from koordinator_tpu_torch.solver import (
     build_candidates,
     masked_top_k,
     refresh_candidates,
-    rescore_dirty,
     run_cycle,
     score_candidates,
     score_cycle,
@@ -104,7 +103,7 @@ from koordinator_tpu_torch.solver.topk import masked_top_k_host
 
 logger = logging.getLogger(__name__)
 
-SERVICE = "koordinator_tpu.bridge.BatchedScorer"
+SERVICE = wire.SERVICE
 
 
 class StatusCode(enum.Enum):
@@ -1132,6 +1131,10 @@ class ScorerServicer:
             return res_.scores, res_.feasible
         scores, feasible = res_.scores, res_.feasible
         res_.scores = res_.feasible = None
+        # looked up at the call, as the reference does, so a fault injected
+        # into ``solver.incremental.rescore_dirty`` reaches the servicer
+        from koordinator_tpu_torch.solver.incremental import rescore_dirty
+
         # koordlint: disable=donation-safety(the launch lock orders it after every earlier launch, whose readbacks hold a clone of the scores, ROADMAP Queue C "The incremental rescore's in-place write")
         return rescore_dirty(
             snap, scores, feasible, res_.dirty_nodes, res_.dirty_pods,

@@ -34,6 +34,16 @@ from typing import List, Tuple
 
 import numpy as np
 
+# the gRPC service the messages travel on (``scorer.proto``'s package and
+# service name)
+SERVICE = "koordinator_tpu.bridge.BatchedScorer"
+
+
+def method_path(name: str) -> str:
+    """The gRPC path of the service's method ``name``."""
+    return f"/{SERVICE}/{name}"
+
+
 VARINT = 0
 FIXED64 = 1
 BYTES = 2
@@ -292,6 +302,19 @@ class Message:
 
     def SetInParent(self) -> None:
         self._mark()
+
+    def ClearField(self, name: str) -> None:
+        """Reset field ``name`` to its default: a sub-message absent, a
+        repeated field empty, a scalar its zero value."""
+        spec = type(self)._spec(name)
+        kind = spec[2]
+        if kind == "message":
+            self.__dict__.pop(name, None)
+        elif kind.startswith("repeated"):
+            object.__setattr__(self, name, _Repeated(
+                self, kind.split()[1], spec[3] if kind == "repeated message" else None))
+        else:
+            object.__setattr__(self, name, _SCALAR_DEFAULTS[kind])
 
     def Clear(self) -> None:
         parent, present = self._parent, self._present

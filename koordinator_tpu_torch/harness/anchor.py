@@ -86,6 +86,12 @@ TRACE_ANCHOR_SHA256 = "11d3a8e604bbece324610eb02184907f9f4d545ede6eae9a0c34b6ce2
 TRACE_HEADLINE_CFG = {"seed": 0, "nodes": 2000, "pod_slots": 10000, "tenants": 8,
                       "gangs": 12, "gang_min_member": 4, "events": 24}
 TRACE_HEADLINE_SHA256 = "6e0d1ff7915984935e02b76caff37cb8a04e7f8b070b65d11dd0876bd2584864"
+# The ``trace`` line's term replays: the accelerator trace drawn with the
+# fused-term events (``TraceConfig(mix=TERM_MIX, ...)``) over two
+# accelerator types and three workload classes, as the reference's
+# ``tests/test_terms.py TestTermTraceEvents`` draws its term trace
+TRACE_TERMS_CFG = {**TRACE_ANCHOR_CFG, "accel_types": 2, "workload_classes": 3}
+TRACE_TERMS_SHA256 = "2bde88b70572e92ad0cba9c7d8735e62f10a3a16a81f2277218c2f2641a59a10"
 
 # The chaos x trace gate (``chip_smoke.py``'s ``chaos`` line): the
 # reference's ``--config chaos-trace`` trace on an accelerator

@@ -118,7 +118,7 @@ def _block_columns(snapshot, cfg, block: int, b: int) -> torch.Tensor:
 
 
 @devprof.boundary("solver.candidates._build")
-def _build(snapshot, cfg):
+def _build(snapshot, *, cfg):
     """Serial blocked sweep over the node axis -> (cand i32[P, C] ascending
     with the sentinel N, count i64[P] exact)."""
     nodes, pods = snapshot.nodes, snapshot.pods
@@ -256,7 +256,7 @@ def _build_sharded(snapshot, cfg, mesh):
     )
 
     def body(snap_l):
-        return _build(snap_l, cfg)
+        return _build(snap_l, cfg=cfg)
 
     return shard_map(body, mesh=mesh, in_specs=(snapshot_pod_partition_specs(snapshot),),
                      out_specs=(P(POD_AXIS, None), P(POD_AXIS)))(snapshot)
@@ -289,7 +289,7 @@ def build_candidates(snapshot, cfg, mesh=None, node_mesh=None):
     )
     if pipelined:
         return _build_pipelined(snapshot, cfg, node_mesh=node_mesh)
-    return _build(unshard_snapshot(snapshot), cfg)
+    return _build(unshard_snapshot(snapshot), cfg=cfg)
 
 
 @devprof.boundary("solver.candidates._refresh")
@@ -323,7 +323,7 @@ def _refresh(snapshot, cand, count, node_idx, n_nodes, pod_idx, n_pods, cfg):
     cand = _merge_lowest(cand, new_idx)
     if n_pods:
         sub_pods = _take_pods(pods, pod_idx.clamp(0, p - 1))
-        row_cand, row_count = _build(dataclasses.replace(snapshot, pods=sub_pods), cfg)
+        row_cand, row_count = _build(dataclasses.replace(snapshot, pods=sub_pods), cfg=cfg)
         rows = pod_idx[:n_pods]
         cand[rows] = row_cand[:n_pods]
         count[rows] = row_count[:n_pods]

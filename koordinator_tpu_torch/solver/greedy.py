@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch.config import (
@@ -35,7 +36,7 @@ from koordinator_tpu_torch.config import (
     CycleConfig,
 )
 from koordinator_tpu_torch.constraints.gang import gang_satisfaction
-from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
+from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE, ClusterSnapshot, PriorityClass
 from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.ops.fit import fit_mask, nonzero_requests
 from koordinator_tpu_torch.ops.loadaware import (
@@ -209,7 +210,8 @@ def greedy_assign(
 
     The loop reads the pods' ids and flags on the host once; the carried
     state and every choice stay on the device, so the loop never waits for
-    it.
+    it.  A snapshot on the CPU runs the same loop in numpy
+    (``_scan_on_host``).
 
     A snapshot placed on a mesh (``parallel/mesh.py``) runs the same scan
     partitioned over its node shards (``parallel.greedy_assign_sharded``,
@@ -222,9 +224,8 @@ def greedy_assign(
 
         return greedy_assign_sharded(
             snapshot, snapshot_mesh(snapshot), cfg, extra_mask, extra_scores)
-    pods, nodes, quotas = snapshot.pods, snapshot.nodes, snapshot.quotas
-    P = pods.capacity
-    dev = nodes.allocatable.device
+    pods = snapshot.pods
+    dev = snapshot.nodes.allocatable.device
 
     order = queue_order(pods.priority, pods.valid)
     score_requests = nonzero_requests(pods.requests)
@@ -233,11 +234,32 @@ def greedy_assign(
     quota_id = pods.quota_id.tolist()
     valid = pods.valid.tolist()
 
+    scan = _scan_on_host if dev.type == "cpu" else _scan_on_device
+    chosen_in_order, node_requested, node_estimated, quota_used = scan(
+        snapshot, cfg, order.tolist(), score_requests, nf, is_prod, quota_id, valid,
+        extra_mask, extra_scores)
+    return finish_cycle(
+        snapshot, order, chosen_in_order, node_requested, node_estimated,
+        quota_used, path="scan",
+    )
+
+
+def _scan_on_device(snapshot, cfg, order, score_requests, nf, is_prod, quota_id, valid,
+                    extra_mask, extra_scores):
+    """``greedy_assign``'s loop on the snapshot's device: one
+    ``step_feasible_scores`` a pod in queue ``order``.  Returns the
+    queue-order choices and the carried state."""
+    pods, nodes, quotas = snapshot.pods, snapshot.nodes, snapshot.quotas
     node_requested = nodes.requested.clone()
     node_estimated = torch.zeros_like(nodes.requested)
     quota_used = quotas.used.clone()
-    chosen_in_order = torch.empty(P, dtype=torch.int32, device=dev)
-    for i, p in enumerate(order.tolist()):
+    chosen_in_order = torch.full((len(order),), -1, dtype=torch.int32,
+                                 device=nodes.allocatable.device)
+    for i, p in enumerate(order):
+        if not valid[p]:
+            # an empty slot is feasible nowhere: it takes no node and
+            # changes no state
+            continue
         prod = nf.prod_sensitive and is_prod[p]
         feasible, scores = step_feasible_scores(
             node_requested,
@@ -270,11 +292,95 @@ def greedy_assign(
         node_estimated.index_add_(0, node, (pods.estimated[p] * take)[None])
         if quota_id[p] >= 0:
             quota_used[quota_id[p]] += pods.requests[p] * take
+    return chosen_in_order, node_requested, node_estimated, quota_used
 
-    return finish_cycle(
-        snapshot, order, chosen_in_order, node_requested, node_estimated,
-        quota_used, path="scan",
-    )
+
+class _HostScores:
+    """``ops/scoring.py``'s scorers in numpy against one node table:
+    ``alloc``'s zero test and divisor, and each weight vector's sum, are
+    taken once a cycle."""
+
+    def __init__(self, alloc: np.ndarray):
+        self.alloc = alloc
+        self.empty = alloc == 0
+        self.den = np.where(self.empty, 1, alloc)
+
+    def least_requested(self, requested: np.ndarray) -> np.ndarray:
+        score = ((self.alloc - requested) * MAX_NODE_SCORE) // self.den
+        return np.where(self.empty | (requested > self.alloc), 0, score)
+
+    def most_requested(self, requested: np.ndarray) -> np.ndarray:
+        score = (np.minimum(requested, self.alloc) * MAX_NODE_SCORE) // self.den
+        return np.where(self.empty, 0, score)
+
+    @staticmethod
+    def weighted(weights: np.ndarray):
+        """``weighted_resource_score`` against ``weights``: an int64 dot
+        product, which wraps as the sum of products does."""
+        weight_sum = int(weights.sum())
+        if weight_sum == 0:
+            return lambda per_resource: np.zeros(per_resource.shape[:-1], np.int64)
+        return lambda per_resource: (per_resource @ weights) // weight_sum
+
+
+def _scan_on_host(snapshot, cfg, order, score_requests, nf, is_prod, quota_id, valid,
+                  extra_mask, extra_scores):
+    """``_scan_on_device`` for a snapshot on the CPU, in numpy: the step
+    of ``step_feasible_scores`` op for op, on host arrays.  At a few dozen
+    pods the CPU path is bound by the per-op cost of ``torch``'s dispatch,
+    which numpy does not pay; the bits are the same
+    (``tests/test_torch_cycle.py`` holds the two loops against each other).
+    Returns the queue-order choices and the carried state as tensors."""
+    pods, nodes, quotas = snapshot.pods, snapshot.nodes, snapshot.quotas
+
+    def host(t):
+        return None if t is None else t.numpy()
+
+    alloc = host(nodes.allocatable)
+    fresh = host(nodes.metric_fresh)
+    requests, sreqs, estimated = host(pods.requests), host(score_requests), host(pods.estimated)
+    qrt, qlim = host(quotas.runtime), host(quotas.limited)
+    usage = {False: host(nf.usage_default), True: host(nf.usage_prod)}
+    node_ok = {False: host(nf.node_ok_default), True: host(nf.node_ok_prod)}
+    mask, extra = host(extra_mask), host(extra_scores)
+    scores = _HostScores(alloc)
+    fit_weighted = scores.weighted(host(cfg.fit_weights_arr()).astype(np.int64))
+    la_weighted = scores.weighted(host(cfg.loadaware_weights_arr()).astype(np.int64))
+    fit = (scores.most_requested if cfg.fit_scoring_strategy == MOST_ALLOCATED
+           else scores.least_requested)
+
+    node_requested = host(nodes.requested).copy()
+    node_estimated = np.zeros_like(node_requested)
+    quota_used = host(quotas.used).copy()
+    chosen_in_order = np.full(len(order), -1, np.int32)
+    for i, p in enumerate(order):
+        if not valid[p]:
+            continue
+        prod = nf.prod_sensitive and is_prod[p]
+        req, qid = requests[p], quota_id[p]
+        feasible = ((node_requested + req <= alloc) | (req <= 0)).all(-1) & node_ok[prod]
+        if qid >= 0 and not ((quota_used[qid] + req <= qrt[qid]) | ~qlim[qid]).all():
+            continue
+        total = np.zeros(alloc.shape[0], np.int64)
+        if cfg.enable_fit_score:
+            total = total + cfg.fit_plugin_weight * fit_weighted(fit(node_requested + sreqs[p]))
+        if cfg.enable_loadaware:
+            la = la_weighted(scores.least_requested(usage[prod] + node_estimated + estimated[p]))
+            total = total + cfg.loadaware_plugin_weight * np.where(fresh, la, 0)
+        if mask is not None:
+            feasible = feasible & mask[p]
+        if extra is not None:
+            total = total + extra[p]
+        if not feasible.any():
+            continue
+        chosen = int(np.where(feasible, total, INT64_MIN).argmax())
+        chosen_in_order[i] = chosen
+        node_requested[chosen] += req
+        node_estimated[chosen] += estimated[p]
+        if qid >= 0:
+            quota_used[qid] += req
+    return tuple(torch.from_numpy(a) for a in (
+        chosen_in_order, node_requested, node_estimated, quota_used))
 
 
 def cell_shape(snapshot: ClusterSnapshot):

@@ -100,7 +100,9 @@ def test_pipelined_build_is_the_default_from_sixteen_blocks(monkeypatch):
     routes = []
     monkeypatch.setattr(candidates, "_build_pipelined",
                         lambda s, c, node_mesh=None: routes.append("pipelined") or (None, None))
-    monkeypatch.setattr(candidates, "_build", lambda s, c: routes.append("serial") or (None, None))
+    # the serial build takes its config by keyword, as the reference's does
+    monkeypatch.setattr(candidates, "_build",
+                        lambda s, *, cfg: routes.append("serial") or (None, None))
     for n in (4096, 16 * 1024):
         leaves = tgen.sparse_leaves(n, 8, n_open=2, seed=1)
         candidates.build_candidates(tsnap.snapshot_from_numpy(leaves, device="cpu"),

@@ -139,12 +139,16 @@ def build_case(name):
     return js, ts, jcfg, tcfg, jx, tx
 
 
-@pytest.mark.parametrize("engine", ["greedy", "dense"])
+# "greedy" runs the eager scan's numpy loop (a CPU snapshot's), "torch_loop"
+# its torch loop (a device snapshot's) on the same CPU snapshot
+@pytest.mark.parametrize("engine", ["greedy", "torch_loop", "dense"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_cycle_matches_reference(case, engine):
+def test_cycle_matches_reference(case, engine, monkeypatch):
     js, ts, jcfg, tcfg, jx, tx = build_case(case)
     want = j_greedy_assign(js, jcfg, **jx)
-    if engine == "greedy":
+    if engine == "torch_loop":
+        monkeypatch.setattr(greedy, "_scan_on_host", greedy._scan_on_device)
+    if engine in ("greedy", "torch_loop"):
         got = greedy.greedy_assign(ts, tcfg, **tx)
         assert got.path == "scan"
         assert_cycle_equal(got, want, case)

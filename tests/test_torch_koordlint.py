@@ -29,6 +29,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,7 +66,8 @@ _PORT_READS = (
 # host-platform devices, as ``jax.devices()`` does under tests/conftest.py)
 _PORT_ON_CPU = ("SchedulerServer", "make_mesh", "cluster_mesh", "pod_mesh",
                 "RawUdsServer", "serve_raw_uds", "serve_uds", "make_server",
-                "generators.quota_colocation_snapshot", "encode_quota_lists")
+                "generators.quota_colocation_snapshot", "encode_quota_lists",
+                "TraceReplay", "overload_band_storm")
 
 
 def _plain_kernel(entry):
@@ -75,6 +77,14 @@ def _plain_kernel(entry):
     def call(*args, interpret=False, **kwargs):
         return entry(*args, **kwargs)
     return call
+
+
+def _lax_top_k(x, k):
+    """``lax.top_k``, the reference's oracle, over a port tensor's host
+    copy (a JAX function takes no torch tensor)."""
+    from jax import lax
+
+    return lax.top_k(np.asarray(x), k)
 
 
 def _kernel_like(fn):
@@ -106,6 +116,7 @@ def _kernel_like(fn):
 # dense one stands
 _PORT_NAMES = {
     "_kernel_like": _kernel_like,
+    "_lax_top_k": _lax_top_k,
     "_port_boundaries": frozenset(PORT_BOUNDARIES),
     "_plain_wide": _plain_kernel(greedy_assign_wide),
     "_plain_dense": _plain_kernel(greedy_assign_dense),
@@ -130,6 +141,16 @@ _POSITIONAL_DTYPE = (
                r"(bool|jnp\.\w+)\)"),
     r"\1, dtype=\2)",
 )
+
+# ``jnp.zeros/full(...)`` with a numpy dtype given positionally: ``torch``
+# takes the same dtype by keyword, as its own
+_NP_POSITIONAL_DTYPE = (
+    re.compile(r"(jnp\.(?:ones|zeros|full|asarray)\((?:[^()]|\([^()]*\))*?), np\.(\w+)\)"),
+    r"\1, dtype=jnp.\2)",
+)
+
+# the reference's oracle ``lax.top_k`` over the port's tensors
+_LAX_TOP_K = (re.compile(r"\blax\.top_k\("), "_lax_top_k(")
 
 # the reference's Pallas kernels and their demotion store, and the port's
 # kernels (run as their plain versions on the CPU) and the ladder's store
@@ -166,11 +187,32 @@ _PORT_EDITS = {
          "from koordinator_tpu_torch.bridge.server import serve_uds"),
         ("solver._PALLAS_LOCK", "solver._LOCK"),
         ("solver._PALLAS_FAILURES", "solver._FAILURES"),
+        # a qualified entry point, given the CPU as ``_ON_CPU`` gives a bare one
+        ("udsserver.RawUdsServer(sock_path)", "_on_cpu(udsserver.RawUdsServer)(sock_path)"),
     ),
-    "test_score_incremental": _MESH_EDITS,
+    # the oracle, ``jnp``'s functional ``.at[].set`` and scalar constructor
+    "test_score_incremental": _MESH_EDITS + (
+        _LAX_TOP_K,
+        ("feasible.at[7, :].set(False)", "feasible.index_fill(0, jnp.tensor([7]), False)"),
+        ("jnp.int64(2 ** 40)", "jnp.tensor(2 ** 40, dtype=jnp.int64)"),
+    ),
     "test_parity_fuzz": _MESH_EDITS,
-    "test_terms": _MESH_EDITS,
-    "test_resident_warm": _MESH_EDITS,
+    "test_terms": _MESH_EDITS + (_LAX_TOP_K,),
+    # K2 through its plain version for the Pallas wide kernel; a fresh
+    # ``jax.jit`` inside the guard is a torch function that builds a kernel,
+    # which the port's guard counts as a build (``compiles``): its
+    # ``traces`` are the ladder's demotions
+    # (``koordinator_tpu_torch/analysis/retrace_guard.py``)
+    "test_resident_warm": _MESH_EDITS + (
+        ("from koordinator_tpu_torch.solver.pallas_cycle import greedy_assign_pallas",
+         "greedy_assign_pallas = _plain_wide"),
+        ("jax.jit(lambda x: x + 1)(jnp.zeros(3))\n        assert counter.traces > 0",
+         "_kernel_like(lambda x: x + 1)(jnp.zeros(3))\n        assert counter.compiles > 0"),
+        ("before = counter.traces\n        jax.jit(lambda x: x - 1)(jnp.zeros(5))",
+         "before = counter.compiles\n        _kernel_like(lambda x: x - 1)(jnp.zeros(5))"),
+        ("# after stop(): not counted\n        assert counter.traces == before",
+         "# after stop(): not counted\n        assert counter.compiles == before"),
+    ),
     "test_solver": (
         ("solver.pallas_demotions()", "solver.kernel_demotions()"),
     ),
@@ -226,7 +268,11 @@ _PORT_EDITS = {
     "test_obs": (
         ("jax.jit(lambda x: x * 3 + 1)(jnp.arange(7))", "(lambda x: x * 3 + 1)(jnp.arange(7))"),
     ),
+    # ``torch.full`` takes its size as a tuple, where ``jnp.full`` takes an int
     "test_candidates": _MESH_EDITS + (
+        _POSITIONAL_DTYPE,
+        _NP_POSITIONAL_DTYPE,
+        (re.compile(r"jnp\.full\(p, "), "jnp.full((p,), "),
         ("sparse_top_k(s_sp, f_sp, cand, k=k, hi=hi)",
          "sparse_top_k(torch.as_tensor(s_sp), torch.as_tensor(f_sp), cand, k=k, hi=hi)"),
     ),
@@ -267,6 +313,10 @@ def rebound(name: str, package: str) -> types.ModuleType:
     if package == PORT:
         src = src.replace("from koordinator_tpu.bridge.codegen import pb2",
                           "from koordinator_tpu_torch.bridge import wire as pb2")
+        # the rest of the reference's codegen shim (``method_path``) is the
+        # codec module's too
+        src = src.replace("from koordinator_tpu.bridge.codegen import",
+                          "from koordinator_tpu.bridge.wire import")
         for pattern, repl in _PORT_READS:
             src = pattern.sub(repl, src)
         src = src.replace("koordinator_tpu.", "koordinator_tpu_torch.")

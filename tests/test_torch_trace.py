@@ -63,6 +63,7 @@ GENERATOR_CASES = {
     "tiny-terms": {**TINY, **TERM},
     "card-main": anchor.TRACE_ANCHOR_CFG,
     "card-headline": anchor.TRACE_HEADLINE_CFG,
+    "card-terms": {**anchor.TRACE_TERMS_CFG, "mix": TERM_MIX},
 }
 
 
@@ -85,9 +86,10 @@ def test_generator_matches_the_reference(name):
 @pytest.mark.parametrize("cfg,digest", [
     (anchor.TRACE_ANCHOR_CFG, anchor.TRACE_ANCHOR_SHA256),
     (anchor.TRACE_HEADLINE_CFG, anchor.TRACE_HEADLINE_SHA256),
-], ids=["main", "headline"])
+    ({**anchor.TRACE_TERMS_CFG, "mix": TERM_MIX}, anchor.TRACE_TERMS_SHA256),
+], ids=["main", "headline", "terms"])
 def test_chip_smoke_trace_digests_are_the_reference_s(cfg, digest):
-    assert ref_trace.generate_trace(ref_trace.TraceConfig(**cfg)).digest() == digest
+    assert ref_trace.generate_trace(ref_config(cfg)).digest() == digest
 
 
 def test_audit_lines_round_trip_and_malformed_streams_raise():
@@ -116,13 +118,18 @@ def test_audit_lines_round_trip_and_malformed_streams_raise():
 # -- the port's own replay, engine against the serial oracle --
 
 def _engine_kw(mix):
-    return {} if mix == "default" else {"cfg": default_term_config(packing_headroom=HEADROOM)}
+    if mix == "default":
+        return {}
+    cfg = default_term_config(packing_headroom=HEADROOM)
+    # the terms on the wave cycle, as the ``trace`` line's ``terms_wave``
+    # replay drives K3 on the card
+    return {"cfg": dataclasses.replace(cfg, wave=32, top_m=4) if mix == "terms_wave" else cfg}
 
 
-@pytest.fixture(scope="module", params=["default", "terms"])
+@pytest.fixture(scope="module", params=["default", "terms", "terms_wave"])
 def tiny_report(request):
-    """One measured raw-transport replay per mix, shared by the read-only
-    assertions."""
+    """One measured raw-transport replay per mix (the terms on the per-pod
+    and on the wave cycle), shared by the read-only assertions."""
     doc = TINY if request.param == "default" else {**TINY, **TERM}
     trace = generate_trace(TraceConfig(**doc))
     report = TraceReplay(trace, engine_kw=_engine_kw(request.param), device="cpu",
