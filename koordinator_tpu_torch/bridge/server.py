@@ -78,6 +78,12 @@ from koordinator_tpu_torch.obs import CycleTelemetry
 from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.obs import lockwitness
 from koordinator_tpu_torch.obs.lockwitness import witness_lock
+from koordinator_tpu_torch.obs.spans import (
+    device_stage,
+    stage,
+    stage_at,
+    stage_since_arrival,
+)
 from koordinator_tpu_torch.parallel.mesh import check_mesh, gather, is_sharded, local
 from koordinator_tpu_torch.replication.admission import (
     AdmissionGate,
@@ -457,25 +463,26 @@ class ScorerServicer:
         client's original frame, when the transport has it (the raw
         framing does), which the journal and the publisher then carry
         verbatim instead of a re-encode."""
-        tspan = self._start_rpc_span("sync", req)
-        if tspan is None:
-            return self._sync_impl(req, wire_bytes)
-        try:
-            reply = self._sync_impl(req, wire_bytes)
-        except BaseException as exc:
-            tspan.abort(exc)
-            raise
-        tspan.set_attr("snapshot_id", reply.snapshot_id)
-        reply.server_span = tspan.span_id
-        tspan.end()
-        return reply
+        with self.telemetry.spans.rpc("sync"):
+            tspan = self._start_rpc_span("sync", req)
+            if tspan is None:
+                return self._sync_impl(req, wire_bytes)
+            try:
+                reply = self._sync_impl(req, wire_bytes)
+            except BaseException as exc:
+                tspan.abort(exc)
+                raise
+            tspan.set_attr("snapshot_id", reply.snapshot_id)
+            reply.server_span = tspan.span_id
+            tspan.end()
+            return reply
 
     def _sync_impl(self, req: "wire.SyncRequest",
                    wire_bytes: Optional[bytes] = None) -> "wire.SyncReply":
         # phase 1 under _sync_lock only: the wire->numpy decode runs while
         # coalesced Scores launch
         with self._sync_lock:
-            t0 = time.perf_counter()
+            t_stage = time.perf_counter_ns()
             try:
                 staged = self.state.stage_sync(req)
             except Exception as exc:
@@ -488,19 +495,22 @@ class ScorerServicer:
                     else:
                         self.telemetry.abort_cycle("sync", exc)
                 raise
-            decode_s = time.perf_counter() - t0
+            t_staged = time.perf_counter_ns()
+            stage_at("stage", t_stage, t_staged)
 
             # phase 2 — atomic commit + the device update, under
             # launch -> state
             def commit() -> "wire.SyncReply":
+                stage_at("wait", t_queued, time.perf_counter_ns())
                 with self._state_lock:
                     self.telemetry.flush_backlog()
                     spans = self.telemetry.spans
-                    spans.add_measured("sync_decode", decode_s)
+                    spans.add_measured("sync_decode", t_stage, t_staged)
                     try:
-                        info = self.state.commit_sync(
-                            staged, spans=spans, plan=plan_cell[0]
-                        )
+                        with stage("commit"):
+                            info = self.state.commit_sync(
+                                staged, spans=spans, plan=plan_cell[0]
+                            )
                     except Exception as exc:
                         self.telemetry.abort_cycle("sync", exc)
                         raise
@@ -530,6 +540,7 @@ class ScorerServicer:
                 plan_cell[0] = self.state.plan_commit(staged)
                 return self.state.commit_donates(staged, plan=plan_cell[0])
 
+            t_queued = time.perf_counter_ns()
             reply = self.dispatch.run_exclusive(commit, drain=_decide_drain)
             # still under _sync_lock: frames are journaled and published in
             # generation order.  The Sync is committed either way, so a
@@ -666,23 +677,24 @@ class ScorerServicer:
 
     def score(self, req: "wire.ScoreRequest", ctx=None) -> "wire.ScoreReply":
         """Tracing shell over :meth:`_score_impl`."""
-        tspan = self._start_rpc_span(
-            "score", req,
-            band=getattr(req, "band", "") or "",
-            top_k=int(getattr(req, "top_k", 0) or 0),
-        )
-        if tspan is None:
-            return self._score_impl(req, ctx, None)
-        try:
-            reply = self._score_impl(req, ctx, tspan)
-        except BaseException as exc:
-            tspan.abort(exc)
-            raise
-        if reply.degraded:
-            tspan.set_attr("degraded", True)
-        reply.server_span = tspan.span_id
-        tspan.end()
-        return reply
+        with self.telemetry.spans.rpc("score"):
+            tspan = self._start_rpc_span(
+                "score", req,
+                band=getattr(req, "band", "") or "",
+                top_k=int(getattr(req, "top_k", 0) or 0),
+            )
+            if tspan is None:
+                return self._score_impl(req, ctx, None)
+            try:
+                reply = self._score_impl(req, ctx, tspan)
+            except BaseException as exc:
+                tspan.abort(exc)
+                raise
+            if reply.degraded:
+                tspan.set_attr("degraded", True)
+            reply.server_span = tspan.span_id
+            tspan.end()
+            return reply
 
     def _score_impl(self, req: "wire.ScoreRequest", ctx=None,
                     tspan=None) -> "wire.ScoreReply":
@@ -737,6 +749,12 @@ class ScorerServicer:
                 if ctx is not None:
                     ctx.abort(StatusCode.DEADLINE_EXCEEDED, str(exc))
                 raise
+            # queued from submit() to its batch's launch section, which
+            # stamped queue_delay_ms on the dispatcher's perf_counter clock
+            stage_at(
+                "wait", int(entry.enqueued_at * 1e9),
+                int((entry.enqueued_at + entry.queue_delay_ms / 1e3) * 1e9),
+            )
             return entry.reply
         finally:
             gate.__exit__(None, None, None)
@@ -816,6 +834,9 @@ class ScorerServicer:
     #    returning the readback closure the dispatcher runs off the lock --
     @launch_section
     def _score_launch_batch(self, batch: List[PendingRequest]):
+        # the execution clock (and the dispatch stage) starts with the
+        # launch section: queue wait excluded, snapshot capture included
+        t_exec = time.perf_counter_ns()
         with self._state_lock:
             sid = self.snapshot_id()
             accepted = []
@@ -892,11 +913,10 @@ class ScorerServicer:
         if sparse:
             return self._score_launch_sparse(
                 accepted, snap, cres, sid, mirror_rows,
-                launch_span, launch_ref,
+                launch_span, launch_ref, t_exec,
             )
         try:
-            # the execution clock excludes queue wait
-            t_exec = time.perf_counter()
+            dev_span = device_stage(self.device)
             devprof.drain_notes()
             N = snap.nodes.capacity
             P = snap.pods.capacity
@@ -949,12 +969,15 @@ class ScorerServicer:
                 hi=score_upper_bound(self.cfg),
             )
             ok = torch.gather(feasible, 1, top_idx.long())
+            if dev_span is not None:
+                dev_span.close()
             # the brownout cache's full tensors: a COPY of the scores,
             # which the next incremental launch writes in place
             cache_full = P * N <= self._brownout_full_cells
             scores_cache = scores.clone() if cache_full else None
             feasible_cache = feasible if cache_full else None
-            dispatch_s = time.perf_counter() - t_exec
+            dispatched = (t_exec, time.perf_counter_ns())
+            stage_at("dispatch", *dispatched)
             devprof_notes = devprof.drain_notes()
         except Exception as exc:
             if launch_span is not None:
@@ -965,12 +988,15 @@ class ScorerServicer:
 
         def _readback():
             try:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
                 ts, ti, ok_np, valid_np, scores_np, feasible_np = read_back(
                     top_scores, top_idx, ok, local(snap.pods.valid), scores_cache,
                     feasible_cache,
                 )
-                readback_s = time.perf_counter() - t0
+                read = (t0, time.perf_counter_ns())
+                stage_at("readback", *read)
+                if dev_span is not None:
+                    dev_span.read()
                 if launch_span is not None:
                     launch_span.set_attr("k_bucket", k_launch)
                     _devprof_span_attrs(launch_span, devprof_notes)
@@ -996,7 +1022,7 @@ class ScorerServicer:
                     except Exception as exc:  # routed to the one caller as its RPC error; sibling replies stand
                         entry.error = exc
                         n_failed += 1
-                exec_ms = (time.perf_counter() - t_exec) * 1000.0
+                exec_ms = (time.perf_counter_ns() - t_exec) / 1e6
             except Exception as exc:
                 if launch_span is not None:
                     launch_span.abort(exc)
@@ -1004,7 +1030,7 @@ class ScorerServicer:
                     self.telemetry.abort_cycle("score", exc)
                 raise
             return lambda: self._score_telemetry(
-                assembled, sid, dispatch_s, readback_s, exec_ms, n_failed,
+                assembled, sid, dispatched, read, exec_ms, n_failed,
                 incr_result=incr_result, incr_cols=incr_cols,
             )
 
@@ -1012,16 +1038,17 @@ class ScorerServicer:
 
     @launch_section
     def _score_launch_sparse(self, accepted, snap, cres, sid, mirror_rows,
-                             launch_span, launch_ref):
+                             launch_span, launch_ref, t_exec):
         """Sparse candidate-set Score launch: score [P, C] gathered cells
         instead of [P, N].  Reuses the resident candidate lists when
         clean, merge-refreshes the dirty entries (reason "dirty"), and
         rebuilds past the staleness bound ("stale") or with nothing
         resident ("cold").  Where every pod's feasible fan-out fits C the
         reply bytes equal the dense path's; otherwise the readback raises
-        :class:`CandidateOverflow`."""
+        :class:`CandidateOverflow`.  ``t_exec``: the launch section's start
+        (``perf_counter_ns``)."""
         try:
-            t_exec = time.perf_counter()
+            dev_span = device_stage(self.device)
             devprof.drain_notes()
             N = snap.nodes.capacity
             P = snap.pods.capacity
@@ -1057,7 +1084,10 @@ class ScorerServicer:
                 scores, feasible, cand, k=k_launch,
                 hi=score_upper_bound(self.cfg),
             )
-            dispatch_s = time.perf_counter() - t_exec
+            if dev_span is not None:
+                dev_span.close()
+            dispatched = (t_exec, time.perf_counter_ns())
+            stage_at("dispatch", *dispatched)
             devprof_notes = devprof.drain_notes()
         except Exception as exc:
             if launch_span is not None:
@@ -1068,11 +1098,14 @@ class ScorerServicer:
 
         def _readback():
             try:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
                 ts, ti, ok_np, count_np, valid_np = read_back(
                     top_scores, top_idx, top_ok, gather(count), local(snap.pods.valid)
                 )
-                readback_s = time.perf_counter() - t0
+                read = (t0, time.perf_counter_ns())
+                stage_at("readback", *read)
+                if dev_span is not None:
+                    dev_span.read()
                 try:
                     check_candidate_overflow(count_np, C)
                 except CandidateOverflow:
@@ -1106,7 +1139,7 @@ class ScorerServicer:
                     except Exception as exc:  # routed to the one caller as its RPC error; sibling replies stand
                         entry.error = exc
                         n_failed += 1
-                exec_ms = (time.perf_counter() - t_exec) * 1000.0
+                exec_ms = (time.perf_counter_ns() - t_exec) / 1e6
             except Exception as exc:
                 if launch_span is not None:
                     launch_span.abort(exc)
@@ -1114,7 +1147,7 @@ class ScorerServicer:
                     self.telemetry.abort_cycle("score", exc)
                 raise
             return lambda: self._score_telemetry(
-                assembled, sid, dispatch_s, readback_s, exec_ms, n_failed,
+                assembled, sid, dispatched, read, exec_ms, n_failed,
                 cand_refresh=refresh_reason, cand_width=C,
             )
 
@@ -1207,7 +1240,7 @@ class ScorerServicer:
         reply = wire.ScoreReply()
         if degraded:
             reply.degraded = True
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         if req.flat:
             # flat layout: four packed arrays, no per-pod messages
             ok_v = ok[:P][valid]
@@ -1227,14 +1260,17 @@ class ScorerServicer:
                 m = ok[p]
                 entry.node_index.extend(ti[p, m])
                 entry.score.extend(ts[p, m])
-        reply.build_ms = (time.perf_counter() - t0) * 1000.0
+        t1 = time.perf_counter_ns()
+        reply.build_ms = (t1 - t0) / 1e6
+        stage_at("reply_build", t0, t1)
         return reply
 
-    def _score_telemetry(self, assembled, sid, dispatch_s, readback_s,
+    def _score_telemetry(self, assembled, sid, dispatched, read,
                          exec_ms, n_failed=0, incr_result=None,
                          incr_cols=0, cand_refresh=None, cand_width=0):
         """Per-batch telemetry, sequenced under the state lock, run as the
-        dispatcher's post-batch hook.  A pending cycle (Sync stages
+        dispatcher's post-batch hook.  ``dispatched`` and ``read`` are the
+        launch's and the readback's ``perf_counter_ns`` (start, end).  A pending cycle (Sync stages
         awaiting their Assign) is not committed by a Score; the latency
         histogram gets one observation per request at the batch's
         execution time."""
@@ -1263,8 +1299,8 @@ class ScorerServicer:
             spans = tel.spans
             pending = spans.has_pending()
             spans.current(snapshot_id=sid)
-            spans.add_measured("score_dispatch", dispatch_s)
-            spans.add_measured("score_readback", readback_s)
+            spans.add_measured("score_dispatch", *dispatched)
+            spans.add_measured("score_readback", *read)
             if len(assembled) > 1:
                 spans.note("coalesced", len(assembled))
             tel.metrics.record_coalesce(
@@ -1283,20 +1319,21 @@ class ScorerServicer:
 
     def assign(self, req: "wire.AssignRequest", ctx=None) -> "wire.AssignReply":
         """Tracing shell over :meth:`_assign_impl`."""
-        tspan = self._start_rpc_span(
-            "assign", req, band=getattr(req, "band", "") or "",
-        )
-        if tspan is None:
-            return self._assign_impl(req, ctx, None)
-        try:
-            reply = self._assign_impl(req, ctx, tspan)
-        except BaseException as exc:
-            tspan.abort(exc)
-            raise
-        tspan.set_attr("cycle_id", reply.cycle_id)
-        reply.server_span = tspan.span_id
-        tspan.end()
-        return reply
+        with self.telemetry.spans.rpc("assign"):
+            tspan = self._start_rpc_span(
+                "assign", req, band=getattr(req, "band", "") or "",
+            )
+            if tspan is None:
+                return self._assign_impl(req, ctx, None)
+            try:
+                reply = self._assign_impl(req, ctx, tspan)
+            except BaseException as exc:
+                tspan.abort(exc)
+                raise
+            tspan.set_attr("cycle_id", reply.cycle_id)
+            reply.server_span = tspan.span_id
+            tspan.end()
+            return reply
 
     def _assign_impl(self, req: "wire.AssignRequest", ctx=None,
                      tspan=None) -> "wire.AssignReply":
@@ -1426,11 +1463,12 @@ class ScorerServicer:
         )
         wait_ms = (time.perf_counter() - t_rpc) * 1000.0
         with self._state_lock:
-            reply = wire.AssignReply(
-                cycle_ms=cycle_ms, path=path or "", cycle_id=scope.cycle_id,
-            )
-            reply.assignment.extend(assignment[valid])
-            reply.status.extend(status[valid])
+            with stage("reply_build"):
+                reply = wire.AssignReply(
+                    cycle_ms=cycle_ms, path=path or "", cycle_id=scope.cycle_id,
+                )
+                reply.assignment.extend(assignment[valid])
+                reply.status.extend(status[valid])
             self.telemetry.metrics.count_assign_memo("hit")
             scope.note("memo_hit", True)
             self.telemetry.commit_scope(
@@ -1455,6 +1493,8 @@ class ScorerServicer:
             # this RPC queued makes a pinned snapshot_id stale, and its
             # in-place writes cannot start until this cycle is read back
             t0[0] = time.perf_counter()
+            stage_since_arrival("wait")
+            dev_span = device_stage(self.device)
             devprof.drain_notes()
             if deadline_at is not None and t0[0] >= deadline_at:
                 raise DeadlineExpired("assign", "gather", budget_ms)
@@ -1465,15 +1505,19 @@ class ScorerServicer:
             result, rounds, eff_wave = self._assign_cycle(
                 snap, scope, i32_ok
             )
+            if dev_span is not None:
+                dev_span.close()
             devprof_notes.extend(devprof.drain_notes())
 
             def _readback():
                 # assignment, status, validity and rounds in one transfer
-                with scope.span("readback"):
+                with scope.span("readback"), stage("readback"):
                     assignment, status, valid, got_rounds = read_back(
                         result.assignment, result.status, local(snap.pods.valid),
                         rounds,
                     )
+                if dev_span is not None:
+                    dev_span.read()
                 return (
                     result,
                     None if got_rounds is None else int(got_rounds),
@@ -1512,11 +1556,12 @@ class ScorerServicer:
         if tspan is not None:
             _devprof_span_attrs(tspan, devprof_notes)
         with self._state_lock:
-            reply = wire.AssignReply(
-                cycle_ms=ms, path=result.path or "", cycle_id=scope.cycle_id,
-            )
-            reply.assignment.extend(assignment[valid])
-            reply.status.extend(status[valid])
+            with stage("reply_build"):
+                reply = wire.AssignReply(
+                    cycle_ms=ms, path=result.path or "", cycle_id=scope.cycle_id,
+                )
+                reply.assignment.extend(assignment[valid])
+                reply.status.extend(status[valid])
             # publish on the OWNED entry: waiters blocked on it consume a
             # result consistent with the generation check they passed
             if memo is not None:

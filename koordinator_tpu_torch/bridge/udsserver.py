@@ -17,6 +17,12 @@ is ``obs/devprof.py capture_profile`` (the payload an ASCII window in ms,
 the reply the capture directory); Promote's is the daemon's
 (``scheduler/server.py``), the reply the promoted snapshot id.  ``bridge/client.py ScorerClient("raw:///path")`` is the
 Python client of this framing.
+
+While stage spans are recorded (``obs/spans.py``), each Sync, Score and
+Assign frame gives the transport's stages on the connection's thread:
+``recv`` (from the header's arrival to the payload's end; the wait for
+the next header is not a stage), ``decode``, ``handler`` (the servicer
+method's whole wall), ``encode`` and ``send``.
 """
 
 from __future__ import annotations
@@ -27,12 +33,14 @@ import os
 import socket
 import struct
 import threading
+import time
 from typing import Optional, Tuple
 
 from koordinator_tpu_torch.bridge import wire
 from koordinator_tpu_torch.bridge.acceptloop import join_unless_current, wake_accept_loop
 from koordinator_tpu_torch.bridge.server import ScorerServicer
 from koordinator_tpu_torch.config import CycleConfig, DEFAULT_CYCLE_CONFIG
+from koordinator_tpu_torch.obs import spans
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +65,45 @@ _MAX_FRAME = 64 << 20
 # turns a burst into a few launches, so the transport must admit the
 # burst first.
 _MAX_CONNS = 96
+
+
+# the transport's stages of one frame, between consecutive marks
+_FRAME_STAGES = ("recv", "decode", "handler", "encode", "send")
+
+
+class _FrameStages:
+    """The ``perf_counter_ns`` marks between one frame's stages, taken on
+    the connection's thread; :meth:`record` records the stages whose both
+    marks were reached."""
+
+    __slots__ = ("_recorder", "_marks")
+
+    def __init__(self, recorder):
+        self._recorder = recorder
+        self._marks = [time.perf_counter_ns()]
+
+    def mark(self) -> None:
+        self._marks.append(time.perf_counter_ns())
+
+    def record(self, rpc: str) -> None:
+        marks = self._marks
+        for name, start, end in zip(_FRAME_STAGES, marks, marks[1:]):
+            self._recorder.record_stage(rpc, name, start, end)
+
+
+class _NoFrameStages:
+    """:class:`_FrameStages` while no stage is recorded."""
+
+    __slots__ = ()
+
+    def mark(self) -> None:
+        pass
+
+    def record(self, rpc: str) -> None:
+        pass
+
+
+_NO_FRAME_STAGES = _NoFrameStages()
 
 
 def _recv_or_eof(conn: socket.socket, n: int) -> Tuple[Optional[bytes], int]:
@@ -196,6 +243,16 @@ class RawUdsServer:
         telemetry = getattr(self.servicer, "telemetry", None)
         return getattr(telemetry, "metrics", None)
 
+    def _frame_stages(self):
+        """The stage marks of a frame whose header just arrived: taken
+        while stage spans are recorded and the servicer has a span
+        recorder, else a no-op."""
+        telemetry = getattr(self.servicer, "telemetry", None)
+        recorder = getattr(telemetry, "spans", None)
+        if recorder is None or not spans.stages_on():
+            return _NO_FRAME_STAGES
+        return _FrameStages(recorder)
+
     def _count_malformed(self, reason: str, detail: str) -> None:
         """A malformed frame is COUNTED and LOGGED, never silently
         dropped: a misbehaving client (or codec drift) used to look like
@@ -222,6 +279,7 @@ class RawUdsServer:
                             "5-byte frame header",
                         )
                     return
+                stages = self._frame_stages()
                 method, length = struct.unpack(">BI", header)
                 if length > _MAX_FRAME:
                     self._count_malformed(
@@ -239,6 +297,7 @@ class RawUdsServer:
                         f"a method-{method} payload",
                     )
                     return
+                stages.mark()
                 admin = self.admin_handlers.get(method)
                 if admin is not None:
                     metrics = self._metrics()
@@ -264,13 +323,16 @@ class RawUdsServer:
                 req_cls, fn = entry
                 try:
                     req = req_cls.FromString(payload)
+                    stages.mark()
                     if method == METHOD_SYNC and self._sync_takes_wire:
                         # the client's original bytes: the journal and the
                         # replication publisher carry them verbatim
                         reply = fn(req, None, wire_bytes=payload)
                     else:
                         reply = fn(req, None)
+                    stages.mark()
                     out = reply.SerializeToString()
+                    stages.mark()
                     if len(out) > _MAX_FRAME:
                         # every client enforces the same cap on replies; a
                         # full-matrix flat Score (top_k=0) at 10k x 2k is
@@ -293,10 +355,13 @@ class RawUdsServer:
                         )
                         continue
                     self._reply(conn, 0, out)
+                    stages.mark()
                 except Exception as exc:  # surfaced to the client, not lost
                     if metrics is not None:
                         metrics.count_uds_error()
                     self._reply(conn, 1, str(exc).encode())
+                finally:
+                    stages.record(_METHOD_NAMES[method])
 
     @staticmethod
     def _reply(conn: socket.socket, status: int, payload: bytes) -> None:

@@ -8,7 +8,9 @@ ScorerServicer):
   snapshot ids and echoed to clients in AssignReply.cycle_id).  Records
   host-side stages (Sync decode, delta scatter, dispatch, readback) and
   device-derived stats the solver already returns (rounds, path) after
-  the caller read them back.
+  the caller read them back; and, while the launch ledger is on or a
+  Profile window open, each RPC's stage spans ``server.<rpc>.<stage>``
+  on one Unix-anchored clock.
 * **metrics** (obs/scorer_metrics.py) — the koord_scorer_* Prometheus
   families over koordlet/metrics.py.
 * **flight** (obs/flight.py) — a ring buffer of the last K cycles'

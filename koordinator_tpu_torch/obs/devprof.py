@@ -25,6 +25,24 @@ launch and Assign spans (``obs/assemble.py`` renders the split), the
 
     python -m koordinator_tpu_torch.obs.devprof <state-dir>
 
+Beside the launch boundaries the ledger keeps **stage rows**: the
+serving path's stages of each RPC, ``server.<rpc>.<stage>``, from a
+frame's bytes to its reply (``obs/spans.py`` says where each is taken).
+While the ledger is on, every closed stage adds one occurrence to its
+row: ``launches`` and ``sampled`` count the occurrences and
+``device_us_total`` sums the stage's microseconds on its own clock, the
+host's ``perf_counter_ns`` wall (``backend: "host"``) or, for the two
+``device`` stages, the card's span between a CUDA event pair
+(``backend: "cuda"``; on the CPU the host wall, ``backend: "cpu"``, as a
+CPU launch is timed).  Each stage row carries ``kind: "stage"``.  They
+appear in ``summary()["boundaries"]`` beside the launch rows, and under
+their own heading in ``health_block`` and the report; ``boundaries()``,
+the metric families and the notes stay the launch boundaries'.  A stage
+holding a launch boundary (``rescore_dirty`` inside
+``server.score.dispatch``, the cycle kernel inside
+``server.assign.kernel``) holds that launch's measurement too, its
+synchronise included.  With the ledger off a stage records nothing.
+
 The contract, as in the reference:
 
 * ``sample == 0`` (the default) is bit-inert: the wrapper's first
@@ -50,6 +68,10 @@ others stand where the reference's stand: ``solver.wide.cycle_wide_cuda``
 ``solver.candidates.score_candidates`` for ``_score``.
 
 :func:`capture_profile` is the admin plane's ``torch.profiler`` window.
+Its ``trace.json`` also holds the host stage spans closed while the
+window was open, as complete events on one track per handler thread,
+placed on the trace's own timeline: each idle stretch of the card lies
+under the stage the host was in.
 """
 
 from __future__ import annotations
@@ -79,6 +101,7 @@ __all__ = [
     "summary",
     "health_block",
     "dump",
+    "record_stage",
     "capture_profile",
     "format_report",
     "LEDGER_FILENAME",
@@ -157,6 +180,22 @@ class _BoundaryStats:
         }
 
 
+class _StageStats(_BoundaryStats):
+    """A stage row: every occurrence is a launch and a sample, its
+    microseconds on the stage's clock (``backend``); it builds nothing."""
+
+    __slots__ = ("backend",)
+
+    def __init__(self, backend: str):
+        super().__init__()
+        self.backend = backend
+
+    def to_dict(self) -> dict:
+        row = super().to_dict()
+        del row["compiles"]
+        return {"kind": "stage", "backend": self.backend, **row}
+
+
 def _quantile(sorted_vals: List[float], q: float) -> Optional[float]:
     """The nearest-rank quantile of ``sorted_vals``, or None."""
     if not sorted_vals:
@@ -174,6 +213,7 @@ class LaunchLedger:
     def __init__(self):
         self._lock = threading.Lock()
         self._boundaries: Dict[str, _BoundaryStats] = {}
+        self._stages: Dict[str, _StageStats] = {}
         self._entries: Dict[tuple, _Entry] = {}  # (boundary, sig) -> row
         self._retraces: List[dict] = []  # attributed rebuild events
         self.sample = 0
@@ -273,6 +313,20 @@ class LaunchLedger:
         if flush:
             self._flush()
 
+    def record_stage(self, name: str, us: float, backend: str) -> None:
+        """One closed stage ``name`` of ``us`` microseconds on its clock
+        (``backend``); nothing while the ledger is off."""
+        if self.sample <= 0:
+            return
+        with self._lock:
+            st = self._stages.get(name)
+            if st is None:
+                st = self._stages[name] = _StageStats(backend)
+            st.launches += 1
+            st.sampled += 1
+            st.device_us_total += us
+            st.samples.append(us)
+
     # -- per-thread launch notes (span attribution seam) --
     def push_note(self, note: dict) -> None:
         notes = getattr(self._tls, "notes", None)
@@ -297,6 +351,7 @@ class LaunchLedger:
             bounds = {
                 n: st.to_dict() for n, st in self._boundaries.items()
             }
+            bounds.update((n, st.to_dict()) for n, st in self._stages.items())
             retraces = list(self._retraces)
             sample = self.sample
         entries.sort(key=lambda d: (d["boundary"], d["sig"]))
@@ -310,8 +365,8 @@ class LaunchLedger:
 
     def health_block(self, top: int = 3) -> dict:
         """The /healthz ``device`` block: platform, device count, the
-        build ledger summary, and the top boundaries by cumulative device
-        time."""
+        build ledger summary, the top boundaries by cumulative device
+        time, and the top stage rows by cumulative time."""
         with self._lock:
             compiles = sum(st.compiles for st in self._boundaries.values())
             compile_ms = sum(
@@ -325,6 +380,19 @@ class LaunchLedger:
                 key=lambda kv: kv[1].device_us_total,
                 reverse=True,
             )[:top]
+            stages = sorted(
+                self._stages.items(), key=lambda kv: kv[1].device_us_total,
+                reverse=True,
+            )[:top]
+            stages = [
+                {
+                    "stage": n,
+                    "backend": st.backend,
+                    "us_total": round(st.device_us_total, 1),
+                    "count": st.launches,
+                }
+                for n, st in stages
+            ]
             retraces = len(self._retraces)
             sample = self.sample
             registered = len(self._boundaries)
@@ -345,6 +413,7 @@ class LaunchLedger:
                 }
                 for n, st in ranked
             ],
+            "stages": stages,
         }
 
     # -- persistence --
@@ -435,6 +504,12 @@ def health_block(top: int = 3) -> dict:
 
 def dump(state_dir: Optional[str] = None) -> Optional[str]:
     return _LEDGER.dump(state_dir)
+
+
+def record_stage(name: str, us: float, backend: str = "host") -> None:
+    """One closed stage span's row in the ledger (``obs/spans.py`` calls
+    this); nothing while the ledger is off."""
+    _LEDGER.record_stage(name, us, backend)
 
 
 # -- environment probes --
@@ -632,9 +707,14 @@ def capture_profile(state_dir: str, window_ms: int = 1000) -> str:
     window runs on a background thread, which starts the profiler, sleeps
     the window, stops it and writes the chrome trace as
     ``<dir>/trace.json`` (renamed into place when complete).  CUDA
-    activity is traced process-wide, whichever thread launches."""
+    activity is traced process-wide, whichever thread launches.  The
+    host stage spans closed from this call until the window stops
+    (``obs/spans.py``) join the trace as complete events, one track per
+    handler thread, on the trace's timeline."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from koordinator_tpu_torch.obs import spans
 
     out_dir = os.path.join(
         state_dir, "devprof_trace", f"capture-{os.getpid()}-{time.time_ns()}"
@@ -644,18 +724,55 @@ def capture_profile(state_dir: str, window_ms: int = 1000) -> str:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
 
+    # opened before the window's thread starts, so an RPC that follows
+    # this call at once is kept
+    cap = spans.open_capture()
+
     def _window():
         try:
-            with profile(activities=activities) as prof:
-                time.sleep(max(0, int(window_ms)) / 1e3)
+            try:
+                with profile(activities=activities) as prof:
+                    time.sleep(max(0, int(window_ms)) / 1e3)
+            finally:
+                spans.close_capture(cap)
             tmp = os.path.join(out_dir, PROFILE_TRACE + ".tmp")
             prof.export_chrome_trace(tmp)
+            _add_stage_tracks(tmp, cap)
             os.replace(tmp, os.path.join(out_dir, PROFILE_TRACE))
         except Exception:  # an admin-plane capture failure is logged; the daemon serves on
             logger.exception("devprof profile capture into %s failed", out_dir)
 
     threading.Thread(target=_window, daemon=True, name="devprof-capture").start()
     return out_dir
+
+
+def _add_stage_tracks(path: str, cap) -> None:
+    """Add the captured stage spans to the chrome trace at ``path`` as
+    complete events (``cat: "server_stage"``) of this process, one track
+    per handler thread (its native id, named ``server stages: <thread>``),
+    at ``ts`` microseconds from the trace's ``baseTimeNanoseconds``."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    tracks = {}
+    for name, start_ns, end_ns, tid, thread in cap.spans:
+        tracks[tid] = thread
+        events.append({
+            "ph": "X", "cat": "server_stage", "name": name, "pid": pid,
+            "tid": tid, "ts": (start_ns - base) / 1e3,
+            "dur": (end_ns - start_ns) / 1e3,
+        })
+    for tid, thread in tracks.items():
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+            "args": {"name": f"server stages: {thread}"},
+        })
+    if cap.overflow:
+        doc["serverStagesDropped"] = cap.overflow
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
 
 
 # -- report CLI --
@@ -668,9 +785,9 @@ def _fmt_num(v, scale=1.0, suffix="") -> str:
 
 def format_report(doc: dict, top: int = 10) -> str:
     """Render a dumped ledger: the build ledger (one row per
-    boundary+signature with its build ms and source) and the
+    boundary+signature with its build ms and source), the
     top-N-by-cumulative-device-time table with each boundary's p50 and
-    p99 device µs."""
+    p99 device µs, and the stage rows by cumulative time."""
     lines = []
     backend = doc.get("backend") or "unknown"
     lines.append(
@@ -695,8 +812,9 @@ def format_report(doc: dict, top: int = 10) -> str:
         f"  {'boundary':<36} {'device_ms':>10} {'p50_us':>10} "
         f"{'p99_us':>10} {'sampled':>8} {'launches':>9} {'builds':>7}"
     )
+    rows = doc.get("boundaries", {})
     ranked = sorted(
-        doc.get("boundaries", {}).items(),
+        ((n, st) for n, st in rows.items() if st.get("kind") != "stage"),
         key=lambda kv: kv[1].get("device_us_total", 0.0),
         reverse=True,
     )
@@ -711,6 +829,25 @@ def format_report(doc: dict, top: int = 10) -> str:
         )
     if not ranked:
         lines.append("  (no launches recorded)")
+    stages = sorted(
+        ((n, st) for n, st in rows.items() if st.get("kind") == "stage"),
+        key=lambda kv: kv[0],
+    )
+    if stages:
+        lines.append("")
+        lines.append("stage spans by RPC (ms on each stage's clock):")
+        lines.append(
+            f"  {'stage':<36} {'total_ms':>10} {'p50_us':>10} "
+            f"{'p99_us':>10} {'count':>8}  clock"
+        )
+        for name, st in stages:
+            lines.append(
+                f"  {name:<36} "
+                f"{st.get('device_us_total', 0.0) / 1e3:>10,.2f} "
+                f"{_fmt_num(st.get('device_us_p50')):>10} "
+                f"{_fmt_num(st.get('device_us_p99')):>10} "
+                f"{st.get('launches', 0):>8}  {st.get('backend', '-')}"
+            )
     retraces = doc.get("retraces", [])
     if retraces:
         lines.append("")
@@ -729,8 +866,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m koordinator_tpu_torch.obs.devprof",
         description="Print the launch ledger dumped under a state "
-        "directory (kernel builds + top boundaries by cumulative device "
-        "time).",
+        "directory (kernel builds, top boundaries by cumulative device "
+        "time, stage spans by RPC).",
     )
     ap.add_argument("state_dir", help="a state directory (or any "
                     f"directory holding {LEDGER_FILENAME}, or the file)")

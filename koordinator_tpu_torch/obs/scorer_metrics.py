@@ -14,7 +14,6 @@ koord_scorer_cycles_total              counter   path
 koord_scorer_cycle_errors_total        counter   stage
 koord_scorer_sync_total                counter   kind (delta|full|mixed|scalar)
 koord_scorer_sync_tensors_total        counter   kind (delta|full)
-koord_scorer_jit_cache_miss_total      counter   kind (trace|compile)
 koord_scorer_snapshot_generation       gauge     —
 koord_scorer_resident_epoch            gauge     epoch (value always 1)
 koord_scorer_resident_warm             gauge     — (last Sync: 1 warm/0 cold)
@@ -105,9 +104,8 @@ growing ``gap`` rate means the transport (or a slow follower's dropped
 subscription) is lossy.  On the leader, ``replica_followers`` gauges
 live subscriptions.
 
-The port compiles no programs at run time, so the jit cache-miss
-counter stays at zero; the family is kept so that a scrape reads the
-same families from either package.
+The port compiles no programs at run time, so it has no jit cache-miss
+family: its kernel builds and loads are the ``devprof`` families'.
 """
 
 from __future__ import annotations
@@ -123,7 +121,6 @@ CYCLES_TOTAL = "koord_scorer_cycles_total"
 CYCLE_ERRORS = "koord_scorer_cycle_errors_total"
 SYNC_TOTAL = "koord_scorer_sync_total"
 SYNC_TENSORS = "koord_scorer_sync_tensors_total"
-JIT_CACHE_MISS = "koord_scorer_jit_cache_miss_total"
 SNAPSHOT_GENERATION = "koord_scorer_snapshot_generation"
 RESIDENT_EPOCH = "koord_scorer_resident_epoch"
 RESIDENT_WARM = "koord_scorer_resident_warm"
@@ -207,9 +204,6 @@ _FAMILIES = (
     (SYNC_TOTAL, "counter",
      "Sync frames by how their tensors rode the wire (delta/full/mixed)"),
     (SYNC_TENSORS, "counter", "synced tensors by encoding (delta/full)"),
-    (JIT_CACHE_MISS, "counter",
-     "jit cache misses observed process-wide (trace) and those that "
-     "reached XLA (compile); a warm stream must not grow this"),
     (SNAPSHOT_GENERATION, "gauge",
      "generation of the resident snapshot (the <gen> of s<epoch>-<gen>)"),
     (RESIDENT_EPOCH, "gauge",
@@ -393,23 +387,22 @@ _FAMILIES = (
      "holding the tier at, between --autoscale-min and "
      "--autoscale-max)"),
     (DEVPROF_COMPILES, "counter",
-     "XLA programs the launch ledger (obs/devprof.py) captured through "
-     "the AOT path, by jit boundary and backend platform — each is one "
-     "(boundary, shape signature) compile-ledger row"),
+     "hand kernels the launch ledger (obs/devprof.py) saw built or "
+     "loaded inside a launch boundary, by boundary and backend — each is "
+     "one (boundary, shape signature) build-ledger row"),
     (DEVPROF_COMPILE_MS, "counter",
-     "cumulative XLA compile wall-time the ledger attributed, by "
-     "boundary and backend; divide by devprof_compiles_total for the "
-     "mean compile cost of that boundary's programs"),
+     "cumulative kernel build or load wall-time the ledger attributed, "
+     "by boundary and backend; divide by devprof_compiles_total for the "
+     "mean build cost of that boundary's kernels"),
     (DEVPROF_DEVICE_US, "histogram",
-     "sampled per-launch device execution time (dispatch to "
-     "block_until_ready on the launch's own outputs), by boundary; "
+     "sampled per-launch device time (a CUDA event pair on the launch's "
+     "stream around the call, the host wall on the CPU), by boundary; "
      "sampling is 1-in-N (--devprof-sample), so multiply counts by N "
      "to estimate launch totals"),
     (DEVPROF_RETRACE, "counter",
-     "attributed retraces: a registered boundary minted a NEW program "
-     "for a shape signature after its first — the per-boundary "
-     "breakdown of koord_scorer_jit_cache_miss_total the ledger names "
-     "in /healthz and the report CLI"),
+     "attributed rebuilds: a registered boundary built or loaded a "
+     "kernel again after its first build — named per boundary in "
+     "/healthz and the report CLI"),
     (PREWARM_SIGNATURES, "counter",
      "kernel variants the boot-time prewarm thread rebuilt from "
      "<state-dir>/prewarm.json, by result: compiled built (or loaded) "
@@ -522,9 +515,6 @@ class ScorerMetrics:
         self.registry.gauge_set(RESIDENT_EPOCH, 1, {"epoch": epoch})
 
     # -- feeds --
-    def count_jit_miss(self, kind: str) -> None:
-        self.registry.counter_add(JIT_CACHE_MISS, 1, {"kind": kind})
-
     def count_demotion(self) -> None:
         self.registry.counter_add(DEMOTIONS_TOTAL, 1)
 

@@ -33,15 +33,41 @@ Design constraints:
   public API with a small RLock (host-side, ~100ns — invisible next to
   a device launch); :class:`CycleSpans` itself stays lock-free and is
   only reached through the recorder.
+
+**One clock.**  Every span measures on ``time.perf_counter_ns``, which
+never steps.  A recorder takes one :class:`ClockAnchor` when it is made
+(``time.time_ns()`` beside ``time.perf_counter_ns()``), and every record
+it writes, cycle spans and OTLP spans alike, carries Unix-epoch
+nanoseconds derived from that anchor (``start_unix_ns``/``end_unix_ns``,
+``startTimeUnixNano``/``endTimeUnixNano``).  That is the clock
+``torch.profiler``'s chrome trace counts from (its
+``baseTimeNanoseconds``), so a host span and a kernel lie on one
+timeline.
+
+**Stage spans.**  The serving path's stages of an RPC, from a frame's
+bytes to its reply, are rows ``server.<rpc>.<stage>`` (``rpc`` one of
+``sync``, ``score``, ``assign``).  ``SpanRecorder.rpc(name)`` binds the
+thread that runs an RPC body to its rpc; :func:`stage` (a with-block),
+:func:`stage_at` (a stage the caller timed) and :func:`device_stage`
+(a launch section's span on its device: on a card a CUDA event pair
+read after the section's own readback, on the CPU the host wall) then
+record on the thread that does the work, wherever it is in the program.  A closed stage goes to the
+launch ledger (``obs/devprof.py``) as a row of ``kind: "stage"`` while
+the ledger is on, and to the open Profile captures' buffers while a
+window is open (:func:`open_capture`).  With neither, ``rpc()`` binds
+nothing and every stage call site costs one check.  Stage rows are
+not cycle spans: the cycle records keep their own names.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import uuid
 from typing import Dict, List, Optional, Tuple
 
+from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.obs.lockwitness import witness_rlock
 
 # hard cap on spans buffered per cycle: a runaway instrumentation loop
@@ -52,6 +78,40 @@ MAX_SPANS_PER_CYCLE = 256
 # coalesced batch — and every memo/brownout serve — reference the ONE
 # launch/readback span that produced the shared bytes
 LINK_FANIN = "fanin"
+
+# hard cap on stage spans one Profile capture keeps: a long window costs
+# a counter bump past it, not memory
+MAX_CAPTURED_STAGES = 1 << 17
+
+
+class ClockAnchor:
+    """One reading of the Unix-epoch clock taken beside the monotonic
+    one.  Spans measure on ``time.perf_counter_ns``; their Unix-epoch
+    stamps are derived from the anchor, so every span of one recorder
+    lies on one timeline, whatever the wall clock does meanwhile."""
+
+    __slots__ = ("mono_ns", "unix_ns")
+
+    def __init__(self):
+        # the Unix reading is bracketed by two monotonic ones and paired
+        # with their midpoint; the tightest of three brackets is kept, so a
+        # thread switch inside one cannot skew the pairing
+        best = None
+        for _ in range(3):
+            before = time.perf_counter_ns()
+            unix = time.time_ns()
+            after = time.perf_counter_ns()
+            if best is None or after - before < best[0]:
+                best = (after - before, unix, (before + after) // 2)
+        _, self.unix_ns, self.mono_ns = best
+
+    def unix_ns_at(self, mono_ns: int) -> int:
+        """The Unix-epoch nanoseconds of a ``perf_counter_ns`` reading."""
+        return self.unix_ns + (mono_ns - self.mono_ns)
+
+
+# the anchor of spans minted outside a recorder (the client shims)
+_PROCESS_ANCHOR = ClockAnchor()
 
 
 def mint_trace_id() -> str:
@@ -85,7 +145,7 @@ class TraceSpan:
 
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "kind",
-        "start_unix", "_clock", "_t0", "dur_ms", "error",
+        "_anchor", "_t0", "_t1", "dur_ms", "error",
         "attrs", "links", "_sink", "_done",
     )
 
@@ -98,17 +158,16 @@ class TraceSpan:
         kind: str = "server",
         sink=None,
         attrs: Optional[Dict[str, object]] = None,
-        clock=time.perf_counter,
-        wall_clock=time.time,
+        anchor: Optional[ClockAnchor] = None,
     ):
         self.name = name
         self.trace_id = trace_id
         self.span_id = span_id
         self.parent_id = parent_id or None
         self.kind = kind
-        self.start_unix = wall_clock()
-        self._clock = clock
-        self._t0 = clock()
+        self._anchor = anchor or _PROCESS_ANCHOR
+        self._t0 = time.perf_counter_ns()
+        self._t1: Optional[int] = None
         self.dur_ms: Optional[float] = None
         self.error: Optional[str] = None
         self.attrs: Dict[str, object] = dict(attrs or {})
@@ -148,7 +207,8 @@ class TraceSpan:
         if self._done:
             return
         self._done = True
-        self.dur_ms = (self._clock() - self._t0) * 1000.0
+        self._t1 = time.perf_counter_ns()
+        self.dur_ms = (self._t1 - self._t0) / 1e6
         if error is not None:
             self.error = error
         sink = self._sink
@@ -172,8 +232,10 @@ class TraceSpan:
         """The OTLP-shaped JSON-line body obs/export.py appends — flat
         camelCase keys, nanosecond wall stamps, links with the fan-in
         type in their attributes (obs/assemble.py is the reader)."""
-        start_ns = int(self.start_unix * 1e9)
-        dur_ns = int((self.dur_ms or 0.0) * 1e6)
+        start_ns = self._anchor.unix_ns_at(self._t0)
+        end_ns = self._anchor.unix_ns_at(
+            self._t1 if self._t1 is not None else self._t0
+        )
         return {
             "traceId": self.trace_id,
             "spanId": self.span_id,
@@ -181,7 +243,7 @@ class TraceSpan:
             "name": self.name,
             "kind": self.kind,
             "startTimeUnixNano": start_ns,
-            "endTimeUnixNano": start_ns + dur_ns,
+            "endTimeUnixNano": end_ns,
             "durMs": round(self.dur_ms or 0.0, 3),
             "status": (
                 {"code": "ERROR", "message": self.error}
@@ -235,12 +297,11 @@ class CycleSpans:
     the owner (ScorerServicer) already serializes RPC bodies."""
 
     __slots__ = (
-        "cycle_id", "snapshot_id", "trace_id", "started_unix", "_t0",
-        "_clock", "spans", "notes", "error", "overflow",
+        "cycle_id", "snapshot_id", "trace_id", "_anchor", "_t0",
+        "spans", "notes", "error", "overflow",
     )
 
-    def __init__(self, cycle_id: str, clock=time.perf_counter,
-                 wall_clock=time.time):
+    def __init__(self, cycle_id: str, anchor: Optional[ClockAnchor] = None):
         self.cycle_id = cycle_id
         self.snapshot_id: Optional[str] = None
         # distributed-trace correlation: the trace id of the
@@ -249,11 +310,9 @@ class CycleSpans:
         # dump is addressable in the assembled trace tree (and vice
         # versa)
         self.trace_id: Optional[str] = None
-        self.started_unix = wall_clock()
-        self._clock = clock
-        self._t0 = clock()
-        # each span is [name, start_s, end_s|None] in monotonic seconds
-        # relative to the cycle's _t0
+        self._anchor = anchor or _PROCESS_ANCHOR
+        self._t0 = time.perf_counter_ns()
+        # each span is [name, start_ns, end_ns|None] on perf_counter_ns
         self.spans: List[list] = []
         self.notes: Dict[str, object] = {}
         self.error: Optional[str] = None
@@ -266,7 +325,7 @@ class CycleSpans:
         if len(self.spans) >= MAX_SPANS_PER_CYCLE:
             self.overflow += 1
             return -1
-        self.spans.append([name, self._clock() - self._t0, None])
+        self.spans.append([name, time.perf_counter_ns(), None])
         return len(self.spans) - 1
 
     def end(self, handle: int) -> None:
@@ -276,40 +335,45 @@ class CycleSpans:
         # the stale end
         if handle < 0 or handle >= len(self.spans):
             return
-        self.spans[handle][2] = self._clock() - self._t0
+        self.spans[handle][2] = time.perf_counter_ns()
 
-    def add_measured(self, name: str, dur_s: float) -> None:
-        """Record an already-measured stage as a closed span ending now.
+    def add_measured(self, name: str, start_ns: int, end_ns: int) -> None:
+        """Record an already-measured stage as a closed span, at the
+        ``perf_counter_ns`` readings it was measured between.
 
         The coalescing pipeline measures some stages OUTSIDE the lock
         that guards this recorder (a Sync's protobuf->numpy decode, a
         batch leader's shared dispatch/readback) and attaches them at
-        the commit point; the start is back-computed and clamped to the
-        cycle origin (a decode can legitimately begin before the cycle
-        it lands on exists)."""
+        the commit point.  A stage may begin before the cycle it lands on
+        was made; the record's origin is then that stage's start."""
         if len(self.spans) >= MAX_SPANS_PER_CYCLE:
             self.overflow += 1
             return
-        end = self._clock() - self._t0
-        self.spans.append([name, max(0.0, end - max(0.0, dur_s)), end])
+        self.spans.append([name, int(start_ns), int(end_ns)])
 
     def to_record(self) -> Dict[str, object]:
-        """Flight-recorder/bench shape: durations in milliseconds; a
+        """Flight-recorder/bench shape: offsets and durations in
+        milliseconds from the cycle's origin (the earlier of its making
+        and its first span), and each span's Unix-epoch nanoseconds; a
         span that never ended carries ``dur_ms: None`` (visible, not
         invented)."""
+        origin = min([self._t0] + [start for _, start, _ in self.spans])
+        unix = self._anchor.unix_ns_at
         return {
             "cycle_id": self.cycle_id,
             "snapshot_id": self.snapshot_id,
             "trace_id": self.trace_id,
-            "started_unix": self.started_unix,
+            "started_unix": unix(origin) / 1e9,
             "spans": [
                 {
                     "name": name,
-                    "start_ms": round(start * 1000.0, 3),
+                    "start_ms": round((start - origin) / 1e6, 3),
                     "dur_ms": (
-                        round((end - start) * 1000.0, 3)
+                        round((end - start) / 1e6, 3)
                         if end is not None else None
                     ),
+                    "start_unix_ns": unix(start),
+                    "end_unix_ns": unix(end) if end is not None else None,
                 }
                 for name, start, end in self.spans
             ],
@@ -385,9 +449,9 @@ class CycleScope:
         with self._lock:
             self._cycle.end(handle)
 
-    def add_measured(self, name: str, dur_s: float) -> None:
+    def add_measured(self, name: str, start_ns: int, end_ns: int) -> None:
         with self._lock:
-            self._cycle.add_measured(name, dur_s)
+            self._cycle.add_measured(name, start_ns, end_ns)
 
     def span(self, name: str) -> "_SpanContext":
         return _SpanContext(self, name)
@@ -407,11 +471,10 @@ class SpanRecorder:
     """Owns the current cycle and mints cycle ids ("c<epoch>-<seq>",
     correlating with the sidecar's "s<epoch>-<gen>" snapshot ids)."""
 
-    def __init__(self, epoch: str = "", clock=time.perf_counter,
-                 wall_clock=time.time):
+    def __init__(self, epoch: str = ""):
         self.epoch = epoch
-        self._clock = clock
-        self._wall_clock = wall_clock
+        # the one clock of every span this recorder writes
+        self.anchor = ClockAnchor()
         self._seq = 0
         # distributed-trace span ids: counter-based and
         # epoch-prefixed like cycle ids, so a pinned epoch makes them
@@ -457,8 +520,7 @@ class SpanRecorder:
             return None
         return TraceSpan(
             name, trace_id, self.mint_span_id(), parent_id=parent_id,
-            kind=kind, sink=self.trace_sink, attrs=attrs,
-            clock=self._clock, wall_clock=self._wall_clock,
+            kind=kind, sink=self.trace_sink, attrs=attrs, anchor=self.anchor,
         )
 
     def current(self, snapshot_id: Optional[str] = None,
@@ -471,8 +533,7 @@ class SpanRecorder:
             if self._cycle is None:
                 self._seq += 1
                 self._cycle = CycleSpans(
-                    cycle_id or f"c{self.epoch}-{self._seq}",
-                    clock=self._clock, wall_clock=self._wall_clock,
+                    cycle_id or f"c{self.epoch}-{self._seq}", anchor=self.anchor,
                 )
             elif cycle_id:
                 self._cycle.cycle_id = cycle_id
@@ -516,8 +577,7 @@ class SpanRecorder:
             else:
                 self._seq += 1
                 cycle = CycleSpans(
-                    cycle_id or f"c{self.epoch}-{self._seq}",
-                    clock=self._clock, wall_clock=self._wall_clock,
+                    cycle_id or f"c{self.epoch}-{self._seq}", anchor=self.anchor,
                 )
             if snapshot_id is not None:
                 cycle.snapshot_id = snapshot_id
@@ -535,11 +595,11 @@ class SpanRecorder:
             if self._cycle is not None:
                 self._cycle.end(handle)
 
-    def add_measured(self, name: str, dur_s: float) -> None:
+    def add_measured(self, name: str, start_ns: int, end_ns: int) -> None:
         """Attach a stage measured outside the recorder (see
         ``CycleSpans.add_measured``) to the current cycle."""
         with self._lock:
-            self.current().add_measured(name, dur_s)
+            self.current().add_measured(name, start_ns, end_ns)
 
     def pending_spans(self) -> int:
         """Span count buffered on the open cycle (0 when none) — the
@@ -559,8 +619,208 @@ class SpanRecorder:
         with self._lock:
             self.current().notes[key] = value
 
+    # -- stage spans --
+    def rpc(self, name: str):
+        """``with recorder.rpc("score"): ...`` around an RPC body: binds
+        the thread's stage spans to rows ``server.<name>.<stage>`` until
+        the block ends, and notes the RPC's arrival (``stage_since_arrival``).
+        Binds nothing while no stage is recorded (the launch ledger off
+        and no Profile window open)."""
+        if not stages_on():
+            return _NULL_CONTEXT
+        return _RpcBinding(self, name)
+
+    def record_stage(self, rpc: str, stage_name: str, start_ns: int,
+                     end_ns: int) -> None:
+        """One closed host stage ``server.<rpc>.<stage_name>``, measured
+        between two ``perf_counter_ns`` readings on the thread that did
+        the work: its row of the launch ledger (while the ledger is on)
+        and the open Profile captures (while a window is open)."""
+        name = f"server.{rpc}.{stage_name}"
+        devprof.record_stage(name, (end_ns - start_ns) / 1e3, "host")
+        captures = _captures
+        if captures:
+            unix = self.anchor.unix_ns_at
+            entry = (name, unix(start_ns), unix(end_ns),
+                     threading.get_native_id(), threading.current_thread().name)
+            for cap in captures:
+                cap.add(entry)
+
 
 _NULL_CONTEXT = contextlib.nullcontext()
+
+# the RPC each thread's stages belong to (``SpanRecorder.rpc``)
+_BOUND = threading.local()
+
+# the Profile captures open now (copy-on-write under _captures_lock, read
+# without it on every stage close)
+_captures: Tuple["StageCapture", ...] = ()
+_captures_lock = threading.Lock()
+
+
+class _RpcBinding:
+    """``SpanRecorder.rpc``'s with-block: this thread's stages belong to
+    ``rpc`` on ``recorder``; the binding it replaced comes back on exit."""
+
+    __slots__ = ("recorder", "rpc", "start_ns", "_prev")
+
+    def __init__(self, recorder: SpanRecorder, rpc: str):
+        self.recorder = recorder
+        self.rpc = rpc
+        self.start_ns = time.perf_counter_ns()
+        self._prev = None
+
+    def __enter__(self) -> "_RpcBinding":
+        self._prev = getattr(_BOUND, "rpc", None)
+        _BOUND.rpc = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _BOUND.rpc = self._prev
+        return False
+
+
+class _Stage:
+    """:func:`stage`'s with-block: one stage on the bound RPC, closed
+    (and recorded) on every exit path."""
+
+    __slots__ = ("_binding", "_name", "_t0")
+
+    def __init__(self, binding: _RpcBinding, name: str):
+        self._binding = binding
+        self._name = name
+        self._t0 = 0
+
+    def __enter__(self) -> "_Stage":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        b = self._binding
+        b.recorder.record_stage(b.rpc, self._name, self._t0, time.perf_counter_ns())
+        return False
+
+
+def stages_on() -> bool:
+    """Whether stage spans are recorded now: the launch ledger is on, or
+    a Profile window is open."""
+    return devprof.enabled() or bool(_captures)
+
+
+def stage(name: str):
+    """``with stage("prepare"): ...``: one stage of the RPC bound to this
+    thread; a no-op outside a bound RPC body."""
+    b = getattr(_BOUND, "rpc", None)
+    if b is None:
+        return _NULL_CONTEXT
+    return _Stage(b, name)
+
+
+def stage_at(name: str, start_ns: int, end_ns: int) -> None:
+    """A stage of the bound RPC that the caller timed, between two
+    ``perf_counter_ns`` readings; a no-op outside a bound RPC body."""
+    b = getattr(_BOUND, "rpc", None)
+    if b is not None:
+        b.recorder.record_stage(b.rpc, name, start_ns, end_ns)
+
+
+def stage_since_arrival(name: str) -> None:
+    """A stage of the bound RPC from its arrival (``SpanRecorder.rpc``)
+    to now: the wait before the RPC's launch section."""
+    b = getattr(_BOUND, "rpc", None)
+    if b is not None:
+        b.recorder.record_stage(b.rpc, name, b.start_ns, time.perf_counter_ns())
+
+
+class DeviceStage:
+    """One launch section's span on its device, the ``device`` stage of
+    the bound RPC.  On a card: a CUDA event on the device's current
+    stream where the section starts (made here) and where it ends
+    (:meth:`close`), read by :meth:`read` after the section's own
+    readback, which has waited on the card already, so the span adds no
+    synchronisation (``backend: "cuda"``).  On the CPU, whose ops run as
+    the section issues them: the host wall between the two points, as
+    the launch ledger times a CPU launch (``backend: "cpu"``)."""
+
+    __slots__ = ("_rpc", "_stream", "_start", "_end")
+
+    def __init__(self, rpc: str, device):
+        self._rpc = rpc
+        self._stream = None
+        self._end = None
+        if device.type == "cuda":
+            import torch
+
+            self._stream = torch.cuda.current_stream(device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(self._stream)
+        else:
+            self._start = time.perf_counter_ns()
+
+    def close(self) -> None:
+        if self._stream is None:
+            self._end = time.perf_counter_ns()
+            return
+        import torch
+
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._end.record(self._stream)
+
+    def read(self) -> None:
+        """Record the span; call after the readback that waited on the
+        device past :meth:`close`."""
+        if self._end is None:
+            return
+        if self._stream is None:
+            us, backend = (self._end - self._start) / 1e3, "cpu"
+        else:
+            us, backend = self._start.elapsed_time(self._end) * 1e3, "cuda"
+        devprof.record_stage(f"server.{self._rpc}.device", us, backend)
+
+
+def device_stage(device) -> Optional[DeviceStage]:
+    """A :class:`DeviceStage` starting now on ``device``, or None off a
+    bound RPC body or with the launch ledger off."""
+    b = getattr(_BOUND, "rpc", None)
+    if b is None or not devprof.enabled():
+        return None
+    return DeviceStage(b.rpc, device)
+
+
+class StageCapture:
+    """The host stage spans closed while one Profile window is open:
+    ``(name, start_unix_ns, end_unix_ns, thread native id, thread name)``
+    each, at most ``MAX_CAPTURED_STAGES``; later ones are counted in
+    ``overflow``."""
+
+    __slots__ = ("spans", "overflow")
+
+    def __init__(self):
+        self.spans: List[tuple] = []
+        self.overflow = 0
+
+    def add(self, entry: tuple) -> None:
+        if len(self.spans) >= MAX_CAPTURED_STAGES:
+            self.overflow += 1
+        else:
+            self.spans.append(entry)
+
+
+def open_capture() -> StageCapture:
+    """Start keeping closed stage spans for one Profile window."""
+    global _captures
+    cap = StageCapture()
+    with _captures_lock:
+        _captures = _captures + (cap,)
+    return cap
+
+
+def close_capture(cap: StageCapture) -> StageCapture:
+    """Stop keeping stage spans for ``cap``'s window; returns ``cap``."""
+    global _captures
+    with _captures_lock:
+        _captures = tuple(c for c in _captures if c is not cap)
+    return cap
 
 
 def maybe_span(recorder: Optional[SpanRecorder], name: str):

@@ -23,6 +23,7 @@ import weakref
 
 import torch
 
+from koordinator_tpu_torch.obs.spans import stage
 from koordinator_tpu_torch.solver.greedy import (  # noqa: F401
     CycleResult,
     STATUS_ASSIGNED,
@@ -238,7 +239,8 @@ def run_cycle(snapshot, cfg=None, extra_mask=None, extra_scores=None, i32_ok=Non
         def thunk():
             result = fn(*args, **kw)
             # a fault during the run surfaces here, inside the ladder
-            torch.cuda.synchronize(snapshot.device)
+            with stage("kernel_wait"):
+                torch.cuda.synchronize(snapshot.device)
             return result
         return thunk
 

@@ -33,6 +33,7 @@ from koordinator_tpu_torch.config import (
 from koordinator_tpu_torch.model import resources as res
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot, PriorityClass
 from koordinator_tpu_torch.obs import devprof
+from koordinator_tpu_torch.obs.spans import stage
 from koordinator_tpu_torch.ops.fit import nonzero_requests
 from koordinator_tpu_torch.ops.scoring import (
     least_requested_score,
@@ -370,10 +371,13 @@ def greedy_assign_dense(
     ``path="cuda"`` on a CUDA snapshot, ``path="scan"`` (the kernel's plain
     version) on a CPU snapshot.  Bit-identical to ``greedy_assign``, extra
     scores of any int64 magnitude included."""
-    inp = prepare_cycle_inputs(snapshot, cfg, extra_mask, extra_scores)
-    chosen, nreq, nest, quse = cycle_dense(inp, cfg)
+    with stage("prepare"):
+        inp = prepare_cycle_inputs(snapshot, cfg, extra_mask, extra_scores)
+    with stage("kernel"):
+        chosen, nreq, nest, quse = cycle_dense(inp, cfg)
     path = "scan" if inp.alloc.device.type == "cpu" else "cuda"
-    return finish_cycle(
-        snapshot, inp.order, chosen, nreq.t().contiguous(),
-        nest.t().contiguous(), quse, path=path,
-    )
+    with stage("finish"):
+        return finish_cycle(
+            snapshot, inp.order, chosen, nreq.t().contiguous(),
+            nest.t().contiguous(), quse, path=path,
+        )

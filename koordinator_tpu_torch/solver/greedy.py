@@ -38,6 +38,7 @@ from koordinator_tpu_torch.config import (
 from koordinator_tpu_torch.constraints.gang import gang_satisfaction
 from koordinator_tpu_torch.model.snapshot import MAX_NODE_SCORE, ClusterSnapshot, PriorityClass
 from koordinator_tpu_torch.obs import devprof
+from koordinator_tpu_torch.obs.spans import stage
 from koordinator_tpu_torch.ops.fit import fit_mask, nonzero_requests
 from koordinator_tpu_torch.ops.loadaware import (
     loadaware_node_masks,
@@ -227,21 +228,25 @@ def greedy_assign(
     pods = snapshot.pods
     dev = snapshot.nodes.allocatable.device
 
-    order = queue_order(pods.priority, pods.valid)
-    score_requests = nonzero_requests(pods.requests)
-    nf = node_filter_inputs(snapshot, cfg)
-    is_prod = (pods.priority_class == int(PriorityClass.PROD)).tolist()
-    quota_id = pods.quota_id.tolist()
-    valid = pods.valid.tolist()
+    # the plain cycle's stages stand where the kernel's do (solver/wide.py)
+    with stage("prepare"):
+        order = queue_order(pods.priority, pods.valid)
+        score_requests = nonzero_requests(pods.requests)
+        nf = node_filter_inputs(snapshot, cfg)
+        is_prod = (pods.priority_class == int(PriorityClass.PROD)).tolist()
+        quota_id = pods.quota_id.tolist()
+        valid = pods.valid.tolist()
 
     scan = _scan_on_host if dev.type == "cpu" else _scan_on_device
-    chosen_in_order, node_requested, node_estimated, quota_used = scan(
-        snapshot, cfg, order.tolist(), score_requests, nf, is_prod, quota_id, valid,
-        extra_mask, extra_scores)
-    return finish_cycle(
-        snapshot, order, chosen_in_order, node_requested, node_estimated,
-        quota_used, path="scan",
-    )
+    with stage("kernel"):
+        chosen_in_order, node_requested, node_estimated, quota_used = scan(
+            snapshot, cfg, order.tolist(), score_requests, nf, is_prod, quota_id, valid,
+            extra_mask, extra_scores)
+    with stage("finish"):
+        return finish_cycle(
+            snapshot, order, chosen_in_order, node_requested, node_estimated,
+            quota_used, path="scan",
+        )
 
 
 def _scan_on_device(snapshot, cfg, order, score_requests, nf, is_prod, quota_id, valid,

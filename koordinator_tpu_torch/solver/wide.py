@@ -46,6 +46,7 @@ from koordinator_tpu_torch import _build
 from koordinator_tpu_torch.config import DEFAULT_CYCLE_CONFIG, MOST_ALLOCATED, CycleConfig
 from koordinator_tpu_torch.model.snapshot import ClusterSnapshot
 from koordinator_tpu_torch.obs import devprof
+from koordinator_tpu_torch.obs.spans import stage
 from koordinator_tpu_torch.solver import dense
 from koordinator_tpu_torch.solver.dense import FLAG_FRESH, FLAG_OK, FLAG_PROD_OK, CycleInputs
 from koordinator_tpu_torch.solver.greedy import (
@@ -498,6 +499,10 @@ def greedy_assign_wide(
             f"extra_scores magnitude {scores_hi} >= 2^29: out of the int32 "
             "kernels' extra-score range; use greedy_assign_dense"
         )
-    inp = prepare_wide_inputs(snapshot, cfg, extra_mask, extra_scores)
+    with stage("prepare"):
+        inp = prepare_wide_inputs(snapshot, cfg, extra_mask, extra_scores)
     path = "scan" if inp.alloc.device.type == "cpu" else "cuda"
-    return wide_result(snapshot, inp, run_wide(inp, cfg), path)
+    with stage("kernel"):
+        outs = run_wide(inp, cfg)
+    with stage("finish"):
+        return wide_result(snapshot, inp, outs, path)

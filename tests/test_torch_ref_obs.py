@@ -22,7 +22,6 @@ from test_torch_ref import (  # noqa: F401  (``shared`` is a fixture)
 )
 from test_torch_koordlint import rebound
 from koordinator_tpu_torch.bridge import wire
-from koordinator_tpu_torch.obs.scorer_metrics import JIT_CACHE_MISS
 from koordinator_tpu_torch.scheduler.server import SchedulerServer
 
 NOT_PORTED = {
@@ -73,7 +72,7 @@ def test_the_daemon_metrics_endpoint_serves_the_scorer_families(tmp_path):
                    "koord_scorer_sync_total", "koord_scheduler_leader"):
         assert text.count(f"# TYPE {family} ") == 1, family
     assert "koord_scorer_cycle_latency_ms_count" in text
-    assert JIT_CACHE_MISS not in text
+    assert "koord_scorer_jit_cache_miss_total" not in text
     for line in text.splitlines():
         if line.startswith("#") or not line:
             continue
