@@ -24,8 +24,6 @@ import sys
 import time
 
 from kbench import manifest
-from kbench.gen.cluster import BindLoop, build
-from kbench.reference import cycle as reference
 from kbench.run import compare
 
 
@@ -35,8 +33,9 @@ def control_readings(cell: manifest.Cell, seed: int, steps: int, warm: int, devi
     ``precision`` in the program's place."""
     t = cell.traffic
     cycle, k = t["cycle"], int(t["top_k"])
-    model = build(cell.config, seed)
-    loop = BindLoop(model, t["lifetime_steps"], seed)
+    gen, reference = cell.generator, cell.reference
+    model = gen.build(cell.config, seed)
+    loop = gen.BindLoop(model, t["lifetime_steps"], seed)
     for _ in range(warm):
         model = loop.after_assign(model, *reference.assign_reply(model, cycle, device=device))
     totals = {"score": 0, "assign": 0}

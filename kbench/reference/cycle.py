@@ -13,7 +13,8 @@ program made.
   LeastAllocated score of measured usage plus the pod's estimate, 0 on a
   stale metric), and, in a term configuration, the heterogeneity
   (throughput matrix), sensitivity (usage-weighted profile) and packing
-  (MostAllocated) terms, each clamped to [0, weight * 100].  Every division
+  (MostAllocated) terms, each clamped to [0, weight * 100]; a term whose
+  data the cluster lacks adds nothing, and packing needs none.  Every division
   is Go's int64 floor division.  The top-k is ordered by score, highest
   first, ties to the lower node index, and keeps feasible nodes only.
 * **Assign** (one scheduling cycle): pods in queue order (priority
@@ -152,12 +153,17 @@ class Cluster:
         self.preq, self.pest = t(model.preq), t(model.pest)
         self.sreq = t(np.where(model.preq == 0, sem.nonzero, model.preq))
         self.P, self.N = self.preq.shape[0], self.alloc.shape[0]
-        self.term_data = None
+        # a term whose data the cluster lacks adds nothing; packing needs none
+        self.het = self.sens = None
         if sem.terms and model.tput is not None:
             tput = np.asarray(model.tput, np.int64)
             C, A = tput.shape
-            self.term_data = (t(tput), t(np.clip(model.wclass, 0, C - 1), torch.int64),
-                              t(np.clip(model.accel, 0, A - 1), torch.int64), t(model.sens))
+            wclass = np.zeros(self.P, np.int64) if model.wclass is None else model.wclass
+            accel = np.zeros(self.N, np.int64) if model.accel is None else model.accel
+            self.het = (t(tput), t(np.clip(wclass, 0, C - 1), torch.int64),
+                        t(np.clip(accel, 0, A - 1), torch.int64))
+        if sem.terms and model.sens is not None:
+            self.sens = t(model.sens)
         thr = t(sem.la_thresholds)
         pct = self.ar.percent(self.usage, self.alloc)
         exceeded = ((thr > 0) & (self.alloc > 0) & (pct >= thr)).any(dim=1)
@@ -181,24 +187,25 @@ class Cluster:
     def terms(self, rows: slice):
         """(scores [rows, N], mask [rows, N] or None) of the enabled terms,
         against the cycle's starting state."""
-        if self.term_data is None:
+        if not self.sem.terms:
             return None, None
         ar = self.ar
-        tput, wclass, accel, sens = self.term_data
-        out = tput[wclass[rows][:, None], accel[None, :]].clamp(0, MAX_NODE_SCORE)
-        # sensitivity: the profile-weighted occupancy of the node
-        empty = self.alloc == 0
-        occ = ar.div(self.usage * MAX_NODE_SCORE, ar.where(empty, 1, self.alloc))
-        occ = ar.where(empty, 0, occ.clamp(0, MAX_NODE_SCORE))
-        s = sens[rows].clamp(0, MAX_NODE_SCORE)
-        dot = (s[:, None, :] * occ[None, :, :]).sum(-1)
-        contention = ar.div(dot, s.sum(-1).clamp(min=1)[:, None])
-        out = out + (MAX_NODE_SCORE - contention).clamp(0, MAX_NODE_SCORE)
         # packing: MostAllocated of the placement
-        pack = self.weighted(lambda r: ar.most_requested(
+        out = self.weighted(lambda r: ar.most_requested(
             self.requested[None, :, r] + self.preq[rows, r][:, None], self.alloc[None, :, r]),
-            self.sem.pack_weights)
-        out = out + pack.clamp(0, MAX_NODE_SCORE)
+            self.sem.pack_weights).clamp(0, MAX_NODE_SCORE)
+        if self.het is not None:
+            tput, wclass, accel = self.het
+            out = out + tput[wclass[rows][:, None], accel[None, :]].clamp(0, MAX_NODE_SCORE)
+        if self.sens is not None:
+            # sensitivity: the profile-weighted occupancy of the node
+            empty = self.alloc == 0
+            occ = ar.div(self.usage * MAX_NODE_SCORE, ar.where(empty, 1, self.alloc))
+            occ = ar.where(empty, 0, occ.clamp(0, MAX_NODE_SCORE))
+            s = self.sens[rows].clamp(0, MAX_NODE_SCORE)
+            dot = (s[:, None, :] * occ[None, :, :]).sum(-1)
+            contention = ar.div(dot, s.sum(-1).clamp(min=1)[:, None])
+            out = out + (MAX_NODE_SCORE - contention).clamp(0, MAX_NODE_SCORE)
         mask = None
         head = self.sem.headroom
         if (head > 0).any():
@@ -270,7 +277,7 @@ def assign_reply(model: ClusterModel, cycle: dict, precision: str = "int64", dev
     dt, q = ar.dtype, ar.q
     extra_scores: Optional[np.ndarray] = None
     extra_mask: Optional[np.ndarray] = None
-    if c.term_data is not None:
+    if sem.terms:
         parts = [c.terms(rows) for rows in c.chunks()]
         extra_scores = torch.cat([s for s, _ in parts]).float().cpu().numpy().astype(dt)
         if parts[0][1] is not None:

@@ -8,13 +8,14 @@ the card, which ``kbench/serve.py`` runs in a process of its own behind
 ``bridge/udsserver.py RawUdsServer``.  One step is a ``sync`` of what
 changed, ``score_flat(top_k)`` and ``assign``; the client waits for each
 reply (one closed loop, as the scheduler).  After each Assign the harness
-binds the placed pods and deletes the batch whose time is up
-(``kbench/gen/cluster.py BindLoop``); that work is timed apart and is not
-the program's.  Set-up starts the servicer, makes the cluster from the
-seed, ships the cold Sync and runs ``warmup_steps`` untimed steps; the
-window then runs steps for ``--seconds``.  After it, a sample of the
-window's replies (drawn from the seed, with the last step in it) is
-compared with the plain reference (``kbench/reference``), and the last line
+binds the placed pods and deletes the batch whose time is up (the
+``BindLoop`` of the generator the configuration names, by default
+``kbench/gen/cluster.py``); that work is timed apart and is not the
+program's.  Set-up starts the servicer, makes the cluster from the seed,
+ships the cold Sync and runs ``warmup_steps`` untimed steps; the window
+then runs steps for ``--seconds``.  After it, a sample of the window's
+replies (drawn from the seed, with the last step in it) is compared with
+the plain reference the configuration names (``reference``), and the last line
 of standard output is the result.  ``--trace 1`` adds a profiler window
 inside the measured window and the launch ledger's device times, and
 reports the cell's per-layer metrics instead of its end-to-end ones.
@@ -46,14 +47,6 @@ from typing import Dict, List, Optional  # noqa: E402
 import numpy as np  # noqa: E402
 
 from kbench import devtrace, manifest, roofline, stats  # noqa: E402
-from kbench.gen.cluster import (  # noqa: E402
-    BindLoop,
-    ClusterModel,
-    build,
-    full_sync_kwargs,
-    sync_kwargs,
-)
-from kbench.reference import cycle as reference  # noqa: E402
 
 # top-level module names no run may load: JAX and the JAX package
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "koordinator_tpu")
@@ -98,9 +91,13 @@ def forbidden_modules(names=None) -> List[str]:
 
 
 def running_band(cell: manifest.Cell):
-    """The running pods a stationary window holds at every cycle: the init
-    pods and the pending queue times the mean lifetime, within the traffic
-    file's ``running_band`` of that."""
+    """The running pods a stationary window holds at every cycle: the
+    generator's ``running_band(config, traffic)`` where it has one; else the
+    init pods and the pending queue times the mean lifetime (every pending
+    pod binds), within the traffic file's ``running_band`` of that."""
+    own = getattr(cell.generator, "running_band", None)
+    if own is not None:
+        return own(cell.config, cell.traffic)
     lo, hi = cell.traffic["lifetime_steps"]
     mean = int(cell.config["init_pods"]) + int(cell.config["pending_pods"]) * (lo + hi) / 2
     band = float(cell.traffic["running_band"])
@@ -222,9 +219,11 @@ class Sample:
         return out
 
 
-def compare(score, assign, model: ClusterModel, cell: manifest.Cell,
+def compare(score, assign, model, cell: manifest.Cell,
             device: str = "cpu") -> Dict[str, int]:
-    """Mismatches of one step's replies against the reference's."""
+    """Mismatches of one step's replies against the configuration's
+    reference over the generator's model of that step."""
+    reference = cell.reference
     cycle, k = cell.traffic["cycle"], int(cell.traffic["top_k"])
     want = reference.score_reply(model, cycle, k, device=device)
     got_pods, got_counts, got_nodes, got_scores = (np.asarray(a) for a in score)
@@ -262,10 +261,11 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     profiled = [None, None]
     try:
         # the cluster is made while the servicer's process starts
-        model = build(cell.config, seed)
-        loop = BindLoop(model, t["lifetime_steps"], seed)
+        gen = cell.generator
+        model = gen.build(cell.config, seed)
+        loop = gen.BindLoop(model, t["lifetime_steps"], seed)
         pending_full = int(cell.config["pending_pods"])
-        sem = reference.Semantics(t["cycle"])
+        sem = cell.reference.Semantics(t["cycle"])
         client = served.ready().client
 
         def step_rpcs(kwargs, step: Step):
@@ -290,9 +290,9 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
             if assign is None:  # a failed step binds nothing
                 return model, {}
             after = loop.after_assign(model, assign[0], assign[1])
-            return after, sync_kwargs(model, after)
+            return after, gen.sync_kwargs(model, after)
 
-        kwargs = full_sync_kwargs(model)
+        kwargs = gen.full_sync_kwargs(model)
         for _ in range(int(t["warmup_steps"])):
             warm = Step()
             _, assign = step_rpcs(kwargs, warm)

@@ -37,14 +37,44 @@ import tempfile  # noqa: E402
 import time  # noqa: E402
 
 
+# the keys of a traffic file's ``cycle`` block that the program is given
+CYCLE_KEYS = ("wave", "top_m", "terms", "packing_headroom")
+
+
 def cycle_config(cycle: dict):
-    """The program's ``CycleConfig`` for a traffic file's ``cycle`` block."""
+    """The program's ``CycleConfig`` for a traffic file's ``cycle`` block,
+    every key of it, with the weights the reference's ``Semantics`` states:
+    ``terms`` turns on the heterogeneity, sensitivity and packing terms at
+    weight 1 (packing weights cpu 1 memory 1), ``packing_headroom`` (a
+    resource's most utilisation, in %) their packing mask.  A key it cannot
+    map raises, so that no key scores one thing in the reference and
+    another in the program."""
     import dataclasses
 
-    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.config import (
+        CycleConfig,
+        HeterogeneityTermArgs,
+        PackingTermArgs,
+        SensitivityTermArgs,
+    )
 
-    return dataclasses.replace(CycleConfig(), wave=int(cycle.get("wave", 1)),
-                               top_m=int(cycle.get("top_m", 4)))
+    unknown = sorted(set(cycle) - set(CYCLE_KEYS))
+    if unknown:
+        raise ValueError(f"the cycle block's {unknown} has no mapping to the program's "
+                         f"CycleConfig; it maps {list(CYCLE_KEYS)}")
+    terms = bool(cycle.get("terms", False))
+    headroom = {name: int(v) for name, v in dict(cycle.get("packing_headroom", {})).items()}
+    if headroom and not terms:
+        raise ValueError("packing_headroom is the packing term's mask: it needs terms true")
+    cfg = dataclasses.replace(CycleConfig(), wave=int(cycle.get("wave", 1)),
+                              top_m=int(cycle.get("top_m", 4)))
+    if terms:
+        cfg = dataclasses.replace(
+            cfg, heterogeneity=HeterogeneityTermArgs(weight=1),
+            sensitivity=SensitivityTermArgs(weight=1),
+            packing=PackingTermArgs(weight=1, resource_weights={"cpu": 1, "memory": 1},
+                                    headroom=headroom))
+    return cfg
 
 
 def devprof_totals() -> dict:
@@ -84,6 +114,8 @@ def main(argv=None) -> int:
     # the protocol keeps the original standard output; stray prints go to stderr
     proto = os.fdopen(os.dup(1), "w", buffering=1)
     os.dup2(2, 1)
+    # a cycle block the program cannot take ends the process before it serves
+    cfg = cycle_config(json.loads(args.cycle))
 
     import torch
 
@@ -94,7 +126,7 @@ def main(argv=None) -> int:
     from koordinator_tpu_torch.bridge.udsserver import RawUdsServer
 
     on_card = args.device.startswith("cuda")
-    servicer = ScorerServicer(cfg=cycle_config(json.loads(args.cycle)), device=args.device,
+    servicer = ScorerServicer(cfg=cfg, device=args.device,
                               devprof_sample=1 if args.traced else None)
     trace_dir = tempfile.mkdtemp(prefix="kbs-")
     window = devtrace.Window(trace_dir, on_card) if args.traced else None

@@ -4,9 +4,12 @@ import numpy as np
 import pytest
 
 from kbench import manifest
-from kbench.gen.cluster import RESOURCE_INDEX, BindLoop, build, full_sync_kwargs, sync_kwargs
 
 CELL = manifest.load_cell("basic5k.bind")
+# the configuration's generator, as the harness loads it
+GEN = CELL.generator
+RESOURCE_INDEX, BindLoop, build = GEN.RESOURCE_INDEX, GEN.BindLoop, GEN.build
+full_sync_kwargs, sync_kwargs = GEN.full_sync_kwargs, GEN.sync_kwargs
 PODS = RESOURCE_INDEX["pods"]
 
 

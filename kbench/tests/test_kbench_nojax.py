@@ -23,7 +23,7 @@ def test_top_level_names_compared_whole(monkeypatch, name, found):
 def test_the_harness_loads_no_jax():
     import subprocess
 
-    code = ("import sys, kbench.run, kbench.serve, kbench.control, "
+    code = ("import sys, kbench.run, kbench.serve, kbench.control, kbench.gen.tenants, "
             "koordinator_tpu_torch.bridge.server, koordinator_tpu_torch.bridge.client;"
             "from kbench.run import forbidden_modules; print(forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -5,29 +5,29 @@ import numpy as np
 import pytest
 
 from kbench import run
-from kbench.gen.cluster import BindLoop, build, full_sync_kwargs, sync_kwargs
 from kbench.reference import cycle as reference
 
 
 def replay(cell, seed, steps):
     """The program's replies to ``steps`` cycles of the cell's loop, on the
-    CPU, with the model at each cycle."""
+    CPU, with the model at each cycle, through the configuration's
+    generator as the harness loads it."""
     import tempfile
 
-    t = cell.traffic
-    model = build(cell.config, seed)
-    loop = BindLoop(model, t["lifetime_steps"], seed)
+    t, gen = cell.traffic, cell.generator
+    model = gen.build(cell.config, seed)
+    loop = gen.BindLoop(model, t["lifetime_steps"], seed)
     served = run.Served(cell, "cpu", False, tempfile.mkdtemp(prefix="kbt-")).ready()
     try:
         client = served.client
-        kwargs = full_sync_kwargs(model)
+        kwargs = gen.full_sync_kwargs(model)
         for _ in range(steps):
             client.sync(**kwargs)
             score = client.score_flat(top_k=t["top_k"])
             assign = client.assign()[:2]
             yield score, assign, model
             after = loop.after_assign(model, *assign)
-            kwargs, model = sync_kwargs(model, after), after
+            kwargs, model = gen.sync_kwargs(model, after), after
     finally:
         served.close()
 
@@ -47,7 +47,8 @@ def test_reference_imports_nothing_of_the_program():
     import subprocess
     import sys
 
-    code = ("import sys, kbench.reference.cycle, kbench.gen.cluster, kbench.control;"
+    code = ("import sys, kbench.reference.cycle, kbench.gen.cluster, kbench.gen.tenants, "
+            "kbench.control;"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'koordinator_tpu_torch', 'koordinator_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -73,7 +74,7 @@ def test_gang_below_its_minimum_waits():
 
 def test_a_full_node_is_infeasible():
     cell = run.manifest.load_cell("basic5k.bind")
-    model = build(dict(cell.config, node_groups=[dict(cell.config["node_groups"][0], count=4)],
+    model = cell.generator.build(dict(cell.config, node_groups=[dict(cell.config["node_groups"][0], count=4)],
                        pending_pods=3, init_pods=0), 1)
     model.nreq = model.nalloc.copy()
     model.nreq[2] = 0
