@@ -1880,8 +1880,9 @@ def trace_phase(card, dev):
     devprof.configure(sample=0)
     devprof.reset()
     led = checked("ledger", trace, ledger, oracle=False)
-    # the launch boundaries; the stage rows beside them are the servicer's stages
-    boundaries = {n: b for n, b in summary["boundaries"].items() if b.get("kind") != "stage"}
+    # the launch boundaries; the stage and counter rows beside them are the servicer's
+    boundaries = {n: b for n, b in summary["boundaries"].items()
+                  if b.get("kind") not in ("stage", "counter")}
     top = sorted(((n, b) for n, b in boundaries.items() if b["sampled"]),
                  key=lambda nb: -nb[1]["device_us_total"])
     unmapped = sorted(set(boundaries) - set(BOUNDARY_RPC))

@@ -87,7 +87,13 @@ from koordinator_tpu_torch.obs.spans import (
     stage_at,
     stage_since_arrival,
 )
-from koordinator_tpu_torch.parallel.mesh import check_mesh, gather, is_sharded, local
+from koordinator_tpu_torch.parallel.mesh import (
+    check_mesh,
+    gather,
+    is_sharded,
+    lead_snapshot,
+    local,
+)
 from koordinator_tpu_torch.replication.admission import (
     AdmissionGate,
     BreakerOpen,
@@ -107,6 +113,12 @@ from koordinator_tpu_torch.solver import (
     sparse_top_k,
 )
 from koordinator_tpu_torch.solver.candidates import check_candidate_overflow
+from koordinator_tpu_torch.solver.greedy import (
+    STATUS_ASSIGNED,
+    STATUS_UNSCHEDULABLE,
+    STATUS_WAIT_GANG,
+    gang_quota_counts,
+)
 from koordinator_tpu_torch.solver.terms import term_names
 from koordinator_tpu_torch.solver.topk import masked_top_k_host, topk_path
 
@@ -152,6 +164,24 @@ def read_back(*tensors):
         out.append(host[off:off + n].view(_NP_DTYPES[t.dtype]).reshape(tuple(t.shape)))
         off += n
     return tuple(out)
+
+
+# an Assign's counters: its cycle record's notes and, with the launch
+# ledger on, its rows ``server.assign.count.<name>``
+ASSIGN_COUNTERS = ("placed", "unschedulable", "wait_gang", "gangs_held", "quota_bound")
+
+
+def _note_counts(scope, status: np.ndarray, held_bound) -> None:
+    """Count one Assign's outcome: its pending pods by status (the host
+    copy the reply is built from) and ``(gangs_held, quota_bound)`` from
+    the device's reduction (``solver/greedy.py gang_quota_counts``)."""
+    by_status = np.bincount(status, minlength=3)
+    counts = dict(zip(ASSIGN_COUNTERS, (
+        int(by_status[STATUS_ASSIGNED]), int(by_status[STATUS_UNSCHEDULABLE]),
+        int(by_status[STATUS_WAIT_GANG])) + tuple(held_bound)))
+    for name, value in counts.items():
+        scope.note(name, value)
+        devprof.record_count(f"server.assign.count.{name}", value)
 
 
 def _devprof_span_attrs(span, notes) -> None:
@@ -1507,19 +1537,28 @@ class ScorerServicer:
                 self._check_generation(req, None)
                 snap = self.state.snapshot()
                 i32_ok = self.state.i32_fits()
+                tables = self.state.has_tables()
             result, rounds, eff_wave = self._assign_cycle(
                 snap, scope, i32_ok
+            )
+            # gangs_held and quota_bound, enqueued here and read back with
+            # the reply's arrays; a cluster with no gang and no quota has
+            # none to count and adds no device work
+            held_bound = (
+                gang_quota_counts(lead_snapshot(snap) if is_sharded(snap) else snap, result)
+                if tables else None
             )
             if dev_span is not None:
                 dev_span.close()
             devprof_notes.extend(devprof.drain_notes())
 
             def _readback():
-                # assignment, status, validity and rounds in one transfer
+                # assignment, status, validity, rounds and the counts in
+                # one transfer
                 with scope.span("readback"), stage("readback"):
-                    assignment, status, valid, got_rounds = read_back(
+                    assignment, status, valid, got_rounds, got_counts = read_back(
                         result.assignment, result.status, local(snap.pods.valid),
-                        rounds,
+                        rounds, held_bound,
                     )
                 if dev_span is not None:
                     dev_span.read()
@@ -1528,12 +1567,13 @@ class ScorerServicer:
                     None if got_rounds is None else int(got_rounds),
                     eff_wave,
                     assignment, status, valid.astype(bool),
+                    (0, 0) if got_counts is None else tuple(int(v) for v in got_counts),
                 )
 
             return _readback
 
         try:
-            result, rounds, eff_wave, assignment, status, valid = (
+            result, rounds, eff_wave, assignment, status, valid, held_bound = (
                 self.dispatch.run_pipelined(launch)
             )
         except SnapshotNotResident as exc:
@@ -1577,6 +1617,7 @@ class ScorerServicer:
                 memo.done.set()
             self.last_cycle = result
             self.telemetry.metrics.count_assign_memo("miss")
+            _note_counts(scope, status[valid], held_bound)
             self.telemetry.commit_scope(
                 scope, ms,
                 path=result.path or "unknown",

@@ -55,7 +55,7 @@ from koordinator_tpu_torch.model.snapshot import (
     QuotaTable,
     pad_bucket,
 )
-from koordinator_tpu_torch.obs.spans import maybe_span
+from koordinator_tpu_torch.obs.spans import maybe_span, stage_part
 from koordinator_tpu_torch.parallel.mesh import (
     check_mesh,
     node_sharding,
@@ -467,19 +467,36 @@ class ResidentState:
             "node_prod": n.prod_usage,
             "pod_requests": p.requests,
             "pod_estimated": p.estimated,
-            "quota_runtime": reqmsg.quotas.runtime,
-            "quota_used": reqmsg.quotas.used,
-            "quota_limited": reqmsg.quotas.limited,
             "pod_sensitivity": p.sensitivity,
             "term_throughput": reqmsg.terms.throughput,
         }
         staged: Dict[str, object] = {}
         tinfo: Dict[str, tuple] = {}
-        for key, tensor in wire_tensors.items():
-            current = getattr(self, key)
-            arr, kind, idx, val = decode_tensor(tensor, current)
-            staged[key] = current if kind == "none" else arr
-            tinfo[key] = (kind, idx, val)
+
+        def decode(tensors) -> None:
+            for key, tensor in tensors.items():
+                current = getattr(self, key)
+                arr, kind, idx, val = decode_tensor(tensor, current)
+                staged[key] = current if kind == "none" else arr
+                tinfo[key] = (kind, idx, val)
+
+        decode(wire_tensors)
+        # the quota table, the gang table and the pods' memberships: the
+        # Sync's "tables" stage, here and in their device update
+        with stage_part("tables"):
+            decode({
+                "quota_runtime": reqmsg.quotas.runtime,
+                "quota_used": reqmsg.quotas.used,
+                "quota_limited": reqmsg.quotas.limited,
+            })
+            if p.gang_id:
+                staged["pod_gang"] = np.asarray(list(p.gang_id), dtype=np.int32)
+            if p.quota_id:
+                staged["pod_quota"] = np.asarray(list(p.quota_id), dtype=np.int32)
+            if reqmsg.gangs.min_member:
+                staged["gang_min"] = np.asarray(
+                    list(reqmsg.gangs.min_member), np.int32
+                )
         if staged["node_alloc"] is None or staged["pod_requests"] is None:
             raise ValueError("first Sync must carry full node and pod tensors")
         if n.metric_fresh:
@@ -492,16 +509,8 @@ class ResidentState:
             staged["pod_priority_class"] = np.asarray(
                 list(p.priority_class), dtype=np.int32
             )
-        if p.gang_id:
-            staged["pod_gang"] = np.asarray(list(p.gang_id), dtype=np.int32)
-        if p.quota_id:
-            staged["pod_quota"] = np.asarray(list(p.quota_id), dtype=np.int32)
         if p.names:
             staged["pod_names"] = tuple(p.names)
-        if reqmsg.gangs.min_member:
-            staged["gang_min"] = np.asarray(
-                list(reqmsg.gangs.min_member), np.int32
-            )
         if n.accel_type:
             staged["node_accel"] = np.asarray(list(n.accel_type), np.int32)
         if p.workload_class:
@@ -701,27 +710,29 @@ class ResidentState:
             pod_patch["priority"] = self._dev_priority()
         if "pod_priority_class" in derived:
             pod_patch["priority_class"] = self._dev_priority_class()
-        if "pod_gang" in derived:
-            pod_patch["gang_id"] = self._dev_gang_id()
-        if "pod_quota" in derived:
-            pod_patch["quota_id"] = self._dev_quota_id()
         if "pod_workload" in derived:
             pod_patch["workload_class"] = self._dev_workload_class()
 
         quota_patch = {}
-        for key, field in (
-            ("quota_runtime", "runtime"),
-            ("quota_used", "used"),
-            ("quota_limited", "limited"),
-        ):
-            if key in tensor_updates:
-                new = updated(getattr(quotas, field), tensor_updates[key])
-                if new is None:
-                    arr = getattr(self, key)
-                    new = self._place_rep(
-                        arr.astype(bool) if field == "limited" else arr
-                    )
-                quota_patch[field] = new
+        with stage_part("tables"):
+            if "pod_gang" in derived:
+                pod_patch["gang_id"] = self._dev_gang_id()
+            if "pod_quota" in derived:
+                pod_patch["quota_id"] = self._dev_quota_id()
+            for key, field in (
+                ("quota_runtime", "runtime"),
+                ("quota_used", "used"),
+                ("quota_limited", "limited"),
+            ):
+                if key in tensor_updates:
+                    new = updated(getattr(quotas, field), tensor_updates[key])
+                    if new is None:
+                        arr = getattr(self, key)
+                        new = self._place_rep(
+                            arr.astype(bool) if field == "limited" else arr
+                        )
+                    quota_patch[field] = new
+            gangs = self._dev_gangs() if "gang_min" in derived else snap.gangs
 
         throughput = snap.throughput
         if "term_throughput" in tensor_updates:
@@ -734,7 +745,6 @@ class ResidentState:
             pods = dataclasses.replace(pods, **pod_patch)
         if quota_patch:
             quotas = dataclasses.replace(quotas, **quota_patch)
-        gangs = self._dev_gangs() if "gang_min" in derived else snap.gangs
         return ClusterSnapshot(
             nodes=nodes, pods=pods, gangs=gangs, quotas=quotas,
             throughput=throughput,
@@ -903,6 +913,11 @@ class ResidentState:
                 return None
             rows.update(np.flatnonzero(old_col != new_col).tolist())
         return dirty_nodes, dirty_pods
+
+    def has_tables(self) -> bool:
+        """Whether the synced cluster has an ElasticQuota group or a
+        PodGroup (from the host mirrors)."""
+        return _present(self.quota_runtime) or _present(self.gang_min)
 
     def i32_fits(self) -> bool:
         """Whether the resident tensors fit the int32 kernels' arithmetic,

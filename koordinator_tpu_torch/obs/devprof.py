@@ -43,6 +43,19 @@ holding a launch boundary (``rescore_dirty`` inside
 ``server.assign.kernel``) holds that launch's measurement too, its
 synchronise included.  With the ledger off a stage records nothing.
 
+Beside them the ledger keeps **counter rows** (``kind: "counter"``),
+``server.<rpc>.count.<name>``: what one RPC counted (the Assign's
+``placed``, ``unschedulable``, ``wait_gang``, ``gangs_held`` and
+``quota_bound``, ``bridge/server.py``).  Each RPC adds one occurrence:
+``launches`` and ``sampled`` count the RPCs, ``total`` sums the counts,
+and ``device_us_total`` holds the same sum, so that a reader of the
+rows' common fields (``launches``, ``sampled``, ``device_us_total``)
+reads a counter as it reads a stage; there it is a count, not
+microseconds.  They appear in ``summary()["boundaries"]``, under
+``counters`` in ``health_block`` and under their own heading in the
+report, never among the launch boundaries; with the ledger off a
+counter records nothing.
+
 The contract, as in the reference:
 
 * ``sample == 0`` (the default) is bit-inert: the wrapper's first
@@ -102,6 +115,7 @@ __all__ = [
     "health_block",
     "dump",
     "record_stage",
+    "record_count",
     "capture_profile",
     "format_report",
     "LEDGER_FILENAME",
@@ -196,6 +210,20 @@ class _StageStats(_BoundaryStats):
         return {"kind": "stage", "backend": self.backend, **row}
 
 
+class _CounterStats:
+    """A counter row: one occurrence an RPC, its counts summed."""
+
+    __slots__ = ("launches", "total")
+
+    def __init__(self):
+        self.launches = 0
+        self.total = 0
+
+    def to_dict(self) -> dict:
+        return {"kind": "counter", "launches": self.launches, "sampled": self.launches,
+                "total": self.total, "device_us_total": float(self.total)}
+
+
 def _quantile(sorted_vals: List[float], q: float) -> Optional[float]:
     """The nearest-rank quantile of ``sorted_vals``, or None."""
     if not sorted_vals:
@@ -214,6 +242,7 @@ class LaunchLedger:
         self._lock = threading.Lock()
         self._boundaries: Dict[str, _BoundaryStats] = {}
         self._stages: Dict[str, _StageStats] = {}
+        self._counters: Dict[str, _CounterStats] = {}
         self._entries: Dict[tuple, _Entry] = {}  # (boundary, sig) -> row
         self._retraces: List[dict] = []  # attributed rebuild events
         self.sample = 0
@@ -327,6 +356,18 @@ class LaunchLedger:
             st.device_us_total += us
             st.samples.append(us)
 
+    def record_count(self, name: str, value: int) -> None:
+        """One RPC's count ``value`` on the counter row ``name``; nothing
+        while the ledger is off."""
+        if self.sample <= 0:
+            return
+        with self._lock:
+            st = self._counters.get(name)
+            if st is None:
+                st = self._counters[name] = _CounterStats()
+            st.launches += 1
+            st.total += int(value)
+
     # -- per-thread launch notes (span attribution seam) --
     def push_note(self, note: dict) -> None:
         notes = getattr(self._tls, "notes", None)
@@ -352,6 +393,7 @@ class LaunchLedger:
                 n: st.to_dict() for n, st in self._boundaries.items()
             }
             bounds.update((n, st.to_dict()) for n, st in self._stages.items())
+            bounds.update((n, st.to_dict()) for n, st in self._counters.items())
             retraces = list(self._retraces)
             sample = self.sample
         entries.sort(key=lambda d: (d["boundary"], d["sig"]))
@@ -393,6 +435,10 @@ class LaunchLedger:
                 }
                 for n, st in stages
             ]
+            counters = [
+                {"counter": n, "total": st.total, "count": st.launches}
+                for n, st in sorted(self._counters.items())
+            ]
             retraces = len(self._retraces)
             sample = self.sample
             registered = len(self._boundaries)
@@ -414,6 +460,7 @@ class LaunchLedger:
                 for n, st in ranked
             ],
             "stages": stages,
+            "counters": counters,
         }
 
     # -- persistence --
@@ -510,6 +557,12 @@ def record_stage(name: str, us: float, backend: str = "host") -> None:
     """One closed stage span's row in the ledger (``obs/spans.py`` calls
     this); nothing while the ledger is off."""
     _LEDGER.record_stage(name, us, backend)
+
+
+def record_count(name: str, value: int) -> None:
+    """One RPC's count on the counter row ``name``; nothing while the
+    ledger is off."""
+    _LEDGER.record_count(name, value)
 
 
 # -- environment probes --
@@ -814,7 +867,7 @@ def format_report(doc: dict, top: int = 10) -> str:
     )
     rows = doc.get("boundaries", {})
     ranked = sorted(
-        ((n, st) for n, st in rows.items() if st.get("kind") != "stage"),
+        ((n, st) for n, st in rows.items() if st.get("kind") not in ("stage", "counter")),
         key=lambda kv: kv[1].get("device_us_total", 0.0),
         reverse=True,
     )
@@ -847,6 +900,17 @@ def format_report(doc: dict, top: int = 10) -> str:
                 f"{_fmt_num(st.get('device_us_p50')):>10} "
                 f"{_fmt_num(st.get('device_us_p99')):>10} "
                 f"{st.get('launches', 0):>8}  {st.get('backend', '-')}"
+            )
+    counters = sorted(
+        (n, st) for n, st in rows.items() if st.get("kind") == "counter"
+    )
+    if counters:
+        lines.append("")
+        lines.append("counters by RPC (summed over the RPCs that counted):")
+        lines.append(f"  {'counter':<36} {'total':>12} {'count':>8}")
+        for name, st in counters:
+            lines.append(
+                f"  {name:<36} {st.get('total', 0):>12,} {st.get('launches', 0):>8}"
             )
     retraces = doc.get("retraces", [])
     if retraces:

@@ -636,15 +636,23 @@ class SpanRecorder:
         between two ``perf_counter_ns`` readings on the thread that did
         the work: its row of the launch ledger (while the ledger is on)
         and the open Profile captures (while a window is open)."""
+        self.record_stage_parts(rpc, stage_name, ((start_ns, end_ns),))
+
+    def record_stage_parts(self, rpc: str, stage_name: str, parts) -> None:
+        """One stage ``server.<rpc>.<stage_name>`` made of the closed
+        intervals ``parts`` (``perf_counter_ns`` pairs): one occurrence of
+        its ledger row, their summed wall, and each interval in the open
+        Profile captures."""
         name = f"server.{rpc}.{stage_name}"
-        devprof.record_stage(name, (end_ns - start_ns) / 1e3, "host")
+        devprof.record_stage(name, sum(end - start for start, end in parts) / 1e3, "host")
         captures = _captures
         if captures:
             unix = self.anchor.unix_ns_at
-            entry = (name, unix(start_ns), unix(end_ns),
-                     threading.get_native_id(), threading.current_thread().name)
-            for cap in captures:
-                cap.add(entry)
+            native, thread = threading.get_native_id(), threading.current_thread().name
+            for start_ns, end_ns in parts:
+                entry = (name, unix(start_ns), unix(end_ns), native, thread)
+                for cap in captures:
+                    cap.add(entry)
 
 
 _NULL_CONTEXT = contextlib.nullcontext()
@@ -660,15 +668,18 @@ _captures_lock = threading.Lock()
 
 class _RpcBinding:
     """``SpanRecorder.rpc``'s with-block: this thread's stages belong to
-    ``rpc`` on ``recorder``; the binding it replaced comes back on exit."""
+    ``rpc`` on ``recorder``; the binding it replaced comes back on exit,
+    after the split stages (:func:`stage_part`) are recorded, one
+    occurrence each."""
 
-    __slots__ = ("recorder", "rpc", "start_ns", "_prev")
+    __slots__ = ("recorder", "rpc", "start_ns", "_prev", "parts")
 
     def __init__(self, recorder: SpanRecorder, rpc: str):
         self.recorder = recorder
         self.rpc = rpc
         self.start_ns = time.perf_counter_ns()
         self._prev = None
+        self.parts: Dict[str, List[Tuple[int, int]]] = {}
 
     def __enter__(self) -> "_RpcBinding":
         self._prev = getattr(_BOUND, "rpc", None)
@@ -677,6 +688,8 @@ class _RpcBinding:
 
     def __exit__(self, *exc) -> bool:
         _BOUND.rpc = self._prev
+        for name, parts in self.parts.items():
+            self.recorder.record_stage_parts(self.rpc, name, parts)
         return False
 
 
@@ -714,6 +727,38 @@ def stage(name: str):
     if b is None:
         return _NULL_CONTEXT
     return _Stage(b, name)
+
+
+class _StagePart:
+    """:func:`stage_part`'s with-block: one interval of a split stage."""
+
+    __slots__ = ("_binding", "_name", "_t0")
+
+    def __init__(self, binding: _RpcBinding, name: str):
+        self._binding = binding
+        self._name = name
+        self._t0 = 0
+
+    def __enter__(self) -> "_StagePart":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._binding.parts.setdefault(self._name, []).append(
+            (self._t0, time.perf_counter_ns()))
+        return False
+
+
+def stage_part(name: str):
+    """``with stage_part("tables"): ...``: one interval of a stage that
+    the RPC's work splits into several (a Sync decodes its tables in one
+    stage and updates their device tensors in another).  The intervals of
+    one RPC make one occurrence of ``server.<rpc>.<name>``, recorded when
+    the RPC's binding ends; a no-op outside a bound RPC body."""
+    b = getattr(_BOUND, "rpc", None)
+    if b is None:
+        return _NULL_CONTEXT
+    return _StagePart(b, name)
 
 
 def stage_at(name: str, start_ns: int, end_ns: int) -> None:

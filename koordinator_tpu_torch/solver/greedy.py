@@ -182,13 +182,15 @@ def finish_cycle(
         torch.tensor(STATUS_ASSIGNED, dtype=torch.int32, device=assignment.device),
         torch.tensor(STATUS_UNSCHEDULABLE, dtype=torch.int32, device=assignment.device),
     )
-    assigned = (assignment >= 0) & pods.valid
-    _, pod_gang_ok = gang_satisfaction(
-        assignment, pods.valid, pods.gang_id, snapshot.gangs.min_member
-    )
-    status = torch.where(
-        assigned & ~pod_gang_ok, torch.full_like(status, STATUS_WAIT_GANG), status
-    )
+    # the gang post-pass: the RPC's stage "gang", inside "finish"
+    with stage("gang"):
+        assigned = (assignment >= 0) & pods.valid
+        _, pod_gang_ok = gang_satisfaction(
+            assignment, pods.valid, pods.gang_id, snapshot.gangs.min_member
+        )
+        status = torch.where(
+            assigned & ~pod_gang_ok, torch.full_like(status, STATUS_WAIT_GANG), status
+        )
     return CycleResult(
         assignment=assignment,
         status=status,
@@ -198,6 +200,31 @@ def finish_cycle(
         rounds=rounds,
         path=path,
     )
+
+
+def gang_quota_counts(snapshot: ClusterSnapshot, result: CycleResult) -> torch.Tensor:
+    """``int64[2]`` on the snapshot's device, enqueued with no host read:
+    the cycle's ``gangs_held``, its PodGroups with a member held by the
+    gang gate (status 2), and its ``quota_bound``, its pending pods left
+    unschedulable (status 1) whose ElasticQuota group, as the cycle left
+    it (``result.quota_used``), lacks room for the pod's request in a
+    dimension the group limits."""
+    pods, quotas = snapshot.pods, snapshot.quotas
+    dev = pods.valid.device
+    status = torch.as_tensor(result.status, device=dev)
+    refused = pods.valid & (status == STATUS_UNSCHEDULABLE)
+    Q = quotas.runtime.shape[0]
+    qid = pods.quota_id.long()
+    q = qid.clamp(0, max(Q - 1, 0))
+    used = torch.as_tensor(result.quota_used, device=dev).long()
+    short = (used[q] + pods.requests > quotas.runtime[q]) & quotas.limited[q].bool()
+    bound = refused & (qid >= 0) & (qid < Q) & short.any(dim=1)
+    G = snapshot.gangs.min_member.shape[0]
+    gid = pods.gang_id.long()
+    held = pods.valid & (status == STATUS_WAIT_GANG) & (gid >= 0) & (gid < G)
+    per_gang = torch.zeros(G + 1, dtype=torch.int64, device=dev)
+    per_gang.index_add_(0, torch.where(held, gid, G), held.long())
+    return torch.stack([(per_gang[:G] > 0).sum(), bound.sum()])
 
 
 def greedy_assign(

@@ -295,7 +295,8 @@ def _keys(doc, prefix=""):
 def test_the_healthz_blocks_have_the_references_keys(monkeypatch):
     """A leader with journal and prewarm, and a follower, of each
     package: every healthz key path is the reference's, and the port's
-    device block adds only its stage rows' heading (``device.stages``)."""
+    device block adds only the headings of its stage rows and its counter
+    rows (``device.stages``, ``device.counters``)."""
     import jax
 
     from koordinator_tpu.obs import devprof as ref_devprof
@@ -327,7 +328,7 @@ def test_the_healthz_blocks_have_the_references_keys(monkeypatch):
             follower.stop()
             leader.stop()
     for ours, theirs in zip(docs["port"], docs["ref"]):
-        assert _keys(ours) - _keys(theirs) == {"device.stages"}
+        assert _keys(ours) - _keys(theirs) == {"device.stages", "device.counters"}
         assert _keys(theirs) <= _keys(ours)
     assert docs["port"][1]["replica"]["role"] == "follower"
 

@@ -41,6 +41,9 @@ ROWS = {
 }
 # the launch sections' spans on their device: the CPU's host wall here
 DEVICE = ("server.score.device", "server.assign.device")
+# stages inside others: the gang post-pass inside ``finish``; the tables,
+# split over ``stage`` (their decode) and ``commit`` (their device update)
+NESTED = {"sync": {"tables": ("stage", "commit")}, "assign": {"gang": ("finish",)}}
 
 
 @pytest.fixture(autouse=True)
@@ -111,7 +114,8 @@ def _stage_rows(rows):
 def test_the_ledger_on_gives_every_stage_row_of_each_rpc():
     stages = _stage_rows(_steps(1))
     want = {f"server.{rpc}.{s}" for rpc, names in ROWS.items() for s in names}
-    assert set(stages) == want | set(DEVICE)
+    nested = {f"server.{rpc}.{s}" for rpc, inner in NESTED.items() for s in inner}
+    assert set(stages) == want | nested | set(DEVICE)
     for name, row in stages.items():
         assert row["backend"] == ("cpu" if name in DEVICE else "host"), name
         assert row["launches"] == row["sampled"] >= 1, name
@@ -129,6 +133,13 @@ def test_the_ledger_on_gives_every_stage_row_of_each_rpc():
         inner = sum(stages[f"server.{rpc}.{s}"]["device_us_total"]
                     for s in names if s not in FRAME)
         assert inner <= stages[f"server.{rpc}.handler"]["device_us_total"], rpc
+    # a nested stage: once an RPC, inside the stages that hold it
+    for rpc, inner in NESTED.items():
+        for name, outer in inner.items():
+            row = stages[f"server.{rpc}.{name}"]
+            assert row["sampled"] == stages[f"server.{rpc}.handler"]["sampled"], name
+            assert row["device_us_total"] <= sum(
+                stages[f"server.{rpc}.{s}"]["device_us_total"] for s in outer), name
 
 
 def test_the_ledger_off_gives_no_stage_row():
