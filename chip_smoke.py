@@ -713,7 +713,7 @@ def score_phase(card, label, snap, cfg, k, anchor_snap, anchor_digest):
     from koordinator_tpu_torch.solver import (
         masked_top_k, masked_top_k_host, score_all, score_cycle, score_upper_bound,
     )
-    from koordinator_tpu_torch.solver.incremental import _take_pods
+    from koordinator_tpu_torch.solver.score_kernel import _take_pods
     from koordinator_tpu_torch.solver.topk import masked_top_k_plain
 
     hi = score_upper_bound(cfg)
@@ -1010,6 +1010,122 @@ def topk_phase(card, dev):
         "k": k, "timed": timed, "bound_by": "bytes", "launches": launches,
         "checked": checked, "parity": "exact vs masked_top_k_plain on the same CUDA tensors",
         "timed_runs": TIMED_RUNS, "card": card,
+    }
+
+
+# the servicer's padded grids of the benchmark's clusters: (name, pending
+# pods, nodes, pod bucket, node bucket)
+SCORE_GRIDS = (("basic5k", 10_000, 5_000, 16_384, 8_192),
+               ("coloc4k", 16_000, 4_034, 16_384, 4_096))
+
+
+def kernel_device_ms(fn, name, runs=TIMED_RUNS):
+    """Mean device ms of the kernels whose name holds ``name`` over ``runs``
+    calls of ``fn``, from a ``torch.profiler`` window; None where the
+    profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+          for e in prof.key_averages() if name in e.key]
+    return sum(us) / 1e3 / runs if sum(us) else None
+
+
+def score_kernel_phase(card, dev):
+    """The ``score`` line (phase 26): the Score program's Filter+Score
+    kernel (``solver/score_cuda.cu``) against its plain version on the
+    servicer's padded grids of the benchmark's two clusters, the full grid
+    and the two passes of an incremental rescore, then timed."""
+    import numpy as np
+    import torch
+
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.harness import generators as g
+    from koordinator_tpu_torch.solver import score_kernel as sk
+    from koordinator_tpu_torch.solver.incremental import _pad_rows, _upload_rows
+
+    cfg = CycleConfig()
+    checked = []
+
+    def check(snap, what, kwargs, mask_only=False):
+        P, N = snap.pods.capacity, snap.nodes.capacity
+        before = (torch.full((P, N), -7, dtype=torch.int64, device=dev),
+                  torch.ones((P, N), dtype=torch.bool, device=dev))
+        scores = None if mask_only else before[0].clone()
+        feasible = before[1].clone()
+        launches = sum(sk.LAUNCHES.values())
+        sk.score_cells(snap, cfg, feasible, scores, **kwargs)
+        torch.cuda.synchronize()
+        if sum(sk.LAUNCHES.values()) != launches + 1:
+            raise AssertionError(f"score {what}: not one launch")
+        want_s = None if mask_only else before[0].clone()
+        want_f = before[1].clone()
+        sk.score_cells_plain(snap, cfg, want_f, want_s, **kwargs)
+        if not (torch.equal(feasible, want_f) and (mask_only or torch.equal(scores, want_s))):
+            raise AssertionError(f"score {what}: the kernel differs from the plain version")
+        checked.append(what)
+
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    grids = {}
+    for name, pods, nodes, pod_bucket, node_bucket in SCORE_GRIDS:
+        snap = g.quota_colocation_snapshot(pods=pods, nodes=nodes, pod_bucket=pod_bucket,
+                                           node_bucket=node_bucket, device=dev)[0]
+        P, N = snap.pods.capacity, snap.nodes.capacity
+        rng = np.random.default_rng(pods)
+        # an incremental rescore's passes: half the real nodes, a quarter
+        # of the pending pods, padded with the sentinel
+        cols = _upload_rows(_pad_rows(rng.choice(nodes, nodes // 2, replace=False), N), N, dev)
+        rows = _upload_rows(_pad_rows(rng.choice(pods, pods // 4, replace=False), P), P, dev)
+        passes = {"full": {}, "columns": {"node_idx": cols[0], "n_nodes": cols[1]},
+                  "rows": {"pod_idx": rows[0], "n_pods": rows[1]}}
+        for form, kwargs in passes.items():
+            check(snap, f"{name} {P}x{N} {form}", kwargs)
+        check(snap, f"{name} {P}x{N} full mask", {}, mask_only=True)
+        out_s = torch.empty((P, N), dtype=torch.int64, device=dev)
+        out_f = torch.empty((P, N), dtype=torch.bool, device=dev)
+        R = snap.nodes.allocatable.shape[1]
+        # each output cell written once (9 bytes), each operand read once
+        need = P * N * 9 + P * (3 * R * 8 + 2) + N * (4 * R * 8 + 3)
+        timed = {}
+        for form, kwargs in passes.items():
+            call_ms, call_wall = cuda_time(lambda: sk.score_cells(snap, cfg, out_f, out_s,
+                                                                  **kwargs))
+            timed[form] = {
+                "cells": (P if "n_pods" not in kwargs else kwargs["n_pods"])
+                * (N if "n_nodes" not in kwargs else kwargs["n_nodes"]),
+                "call_ms": call_ms, "call_ms_host_wall": call_wall,
+                "kernel_ms": kernel_device_ms(
+                    lambda: sk.score_cells(snap, cfg, out_f, out_s, **kwargs),
+                    "score_cells_kernel"),
+                "plain_ms": cuda_time(lambda: sk.score_cells_plain(snap, cfg, out_f, out_s,
+                                                                   **kwargs), runs=3)[0],
+            }
+        full = timed["full"]
+        grids[name] = {
+            "pods": pods, "nodes": nodes, "shape": [P, N], "timed": timed,
+            "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_bytes": need,
+            "roofline_share": (need / HBM_BYTES_PER_S * 1e3 / full["kernel_ms"]
+                               if full["kernel_ms"] else None),
+        }
+    # the checks' launches, one each; the timing loops above are not counted
+    launches = {"scores": len([c for c in checked if not c.endswith("mask")]),
+                "mask": len([c for c in checked if c.endswith("mask")])}
+    return {
+        "name": "score_cells_kernel", "route": "cuda",
+        "source": "koordinator_tpu_torch/solver/score_cuda.cu",
+        "replaces": "none: the reference's score_all is XLA ops",
+        "grids": grids, "bound_by": "bytes", "launches": launches, "checked": checked,
+        "parity": "exact vs score_cells_plain on the same CUDA tensors",
+        "timed_runs": TIMED_RUNS,
+        "note": "call_ms: score_cells with its row-sized prep; kernel_ms: the kernel alone "
+                "(profiler)", "card": card,
     }
 
 
@@ -1655,7 +1771,7 @@ def profile_busy(doc):
 BOUNDARY_RPC = {
     "solver.resident.apply_flat_delta": "sync",
     "solver.greedy.score_cycle": "score", "solver.topk.masked_top_k": "score",
-    "solver.incremental.rescore_dirty": "score",
+    "solver.incremental.rescore_dirty": "score", "solver.score_kernel.score_cells": "score",
     "solver.candidates._build": "score", "solver.candidates._count_blocks": "score",
     "solver.candidates._refresh": "score", "solver.candidates.score_candidates": "score",
     "solver.wide.cycle_wide_cuda": "assign", "solver.wide.wave_cycle_cuda": "assign",
@@ -4410,11 +4526,11 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
     return line, launches
 
 
-ONLY_LINES = ("trace", "failover", "coldstart", "mesh", "topk")
+ONLY_LINES = ("trace", "failover", "coldstart", "mesh", "topk", "score")
 
 
 def only_lines(names) -> int:
-    """``python3 chip_smoke.py --only trace,failover,coldstart,mesh,topk``: those
+    """``python3 chip_smoke.py --only trace,failover,coldstart,mesh,topk,score``: those
     lines alone, after the card line, the kernels' builds and phase 4's
     headline ``run_cycle(snap)`` (exact against ``greedy_assign``), which
     the ``failover`` line holds its recovered daemons to and the ``mesh``
@@ -4455,6 +4571,8 @@ def only_lines(names) -> int:
                                  int(result_w.rounds))
         elif name == "topk":
             line = topk_phase(card, torch.device("cuda"))
+        elif name == "score":
+            line = score_kernel_phase(card, torch.device("cuda"))
         else:
             line, _ = coldstart_phase(card, torch.device("cuda"))
         print(json.dumps({name: line}))
@@ -4485,16 +4603,17 @@ def main() -> int:
         WAVE_ANCHOR_CFG, WAVE_ANCHOR_ROUNDS, cycle_digest,
     )
     from koordinator_tpu_torch.solver import (
-        dense, greedy_assign, kernel_demotions, run_cycle, topk, wide,
+        dense, greedy_assign, kernel_demotions, run_cycle, score_kernel, topk, wide,
     )
     from koordinator_tpu_torch.solver.terms import default_term_config, term_extras
     from koordinator_tpu_torch.config import CycleConfig
 
     phase_s = {}
     clock = [time.perf_counter()]
-    # each line's top-k launches in this process, since the line's last
-    # reset of the launch counts (the kernels line)
+    # each line's top-k and Score kernel launches in this process, since
+    # the line's last reset of the launch counts (the kernels line)
     topk_lines = {}
+    score_lines = {}
 
     def phase_done(name):
         now = time.perf_counter()
@@ -4502,6 +4621,8 @@ def main() -> int:
         clock[0] = now
         topk_lines[name.split("_", 1)[1]] = dict(topk.LAUNCHES)
         topk.reset_launches()
+        score_lines[name.split("_", 1)[1]] = dict(score_kernel.LAUNCHES)
+        score_kernel.reset_launches()
 
     # phase 1
     card = card_line()
@@ -4873,6 +4994,11 @@ def main() -> int:
     print(json.dumps({"topk": topk_line}))
     phase_done("25_topk")
 
+    # phase 26: the Score program's Filter+Score kernel against its plain version
+    score_line = score_kernel_phase(card, dev)
+    print(json.dumps({"score": score_line}))
+    phase_done("26_score")
+
     # phase 10
     print(json.dumps({"phase_seconds": phase_s}))
     # each kernel's launches on every line that drives a path
@@ -4922,6 +5048,21 @@ def main() -> int:
         "max_abs_err": 0, "ms": cells["ms"], "plain_ms": cells["plain_ms"],
         "bound_ms": cells["bound_ms"], "bound_by": topk_line["bound_by"],
         "library_ms": cells["library_ms"], "parity": "exact",
+    })
+    # the Score kernel: every line's launches in this process (the score
+    # line's checks alone)
+    score_lines["score"] = score_line["launches"]
+    basic = score_line["grids"]["basic5k"]
+    kernels.append({
+        "name": "score_cells", "route": "cuda", "source": score_line["source"],
+        "replaces": score_line["replaces"], "launches": sum(score_line["launches"].values()),
+        **{f"{ln}_launches": n["scores"] for ln, n in score_lines.items() if n["scores"]},
+        "mask_launches": {ln: n["mask"] for ln, n in score_lines.items() if n["mask"]},
+        "max_abs_err": 0, "ms": basic["timed"]["full"]["kernel_ms"],
+        "plain_ms": basic["timed"]["full"]["plain_ms"], "bound_ms": basic["bound_ms"],
+        "bound_by": score_line["bound_by"],
+        # no PyTorch call computes the Filter+Score
+        "library_ms": None, "parity": "exact",
     })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

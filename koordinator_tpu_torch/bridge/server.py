@@ -109,6 +109,7 @@ from koordinator_tpu_torch.solver import (
     score_candidates,
     score_cycle,
     score_cycle_sharded,
+    score_kernel,
     score_upper_bound,
     sparse_top_k,
 )
@@ -182,6 +183,26 @@ def _note_counts(scope, status: np.ndarray, held_bound) -> None:
     for name, value in counts.items():
         scope.note(name, value)
         devprof.record_count(f"server.assign.count.{name}", value)
+
+
+# a Score's counters, with the launch ledger on: its launches of the Score
+# kernel (``solver/score_kernel.py``) and the cells they wrote, rows
+# ``server.score.count.<name>``
+SCORE_COUNTERS = ("score_kernel_launches", "score_kernel_cells")
+
+
+def _score_kernel_since(before) -> tuple:
+    """One Score's launches of the Score kernel and their cells since
+    ``before`` (``score_kernel.totals()``), both taken inside its launch
+    section, which no other launch shares."""
+    return tuple(a - b for a, b in zip(score_kernel.totals(), before))
+
+
+def _record_score_kernel(counts) -> None:
+    """The rows ``server.score.count.<name>`` of one Score, recorded off
+    the launch lock."""
+    for name, value in zip(SCORE_COUNTERS, counts):
+        devprof.record_count(f"server.score.count.{name}", value)
 
 
 def _devprof_span_attrs(span, notes) -> None:
@@ -951,6 +972,7 @@ class ScorerServicer:
         try:
             dev_span = device_stage(self.device)
             devprof.drain_notes()
+            kernel_before = score_kernel.totals()
             N = snap.nodes.capacity
             P = snap.pods.capacity
             ks = [min(int(e.req.top_k) or N, N) for e in accepted]
@@ -1002,6 +1024,7 @@ class ScorerServicer:
                 hi=score_upper_bound(self.cfg),
             )
             ok = torch.gather(feasible, 1, top_idx.long())
+            kernel_counts = _score_kernel_since(kernel_before)
             if dev_span is not None:
                 dev_span.close()
             # the brownout cache's full tensors: a COPY of the scores,
@@ -1028,6 +1051,7 @@ class ScorerServicer:
                 )
                 read = (t0, time.perf_counter_ns())
                 stage_at("readback", *read)
+                _record_score_kernel(kernel_counts)
                 if dev_span is not None:
                     dev_span.read()
                 if launch_span is not None:
@@ -1084,6 +1108,7 @@ class ScorerServicer:
         try:
             dev_span = device_stage(self.device)
             devprof.drain_notes()
+            kernel_before = score_kernel.totals()
             N = snap.nodes.capacity
             P = snap.pods.capacity
             C = int(self.cfg.candidate_width)
@@ -1118,6 +1143,7 @@ class ScorerServicer:
                 scores, feasible, cand, k=k_launch,
                 hi=score_upper_bound(self.cfg),
             )
+            kernel_counts = _score_kernel_since(kernel_before)
             if dev_span is not None:
                 dev_span.close()
             dispatched = (t_exec, time.perf_counter_ns())
@@ -1138,6 +1164,7 @@ class ScorerServicer:
                 )
                 read = (t0, time.perf_counter_ns())
                 stage_at("readback", *read)
+                _record_score_kernel(kernel_counts)
                 if dev_span is not None:
                     dev_span.read()
                 try:

@@ -18,7 +18,7 @@ build`` (seconds each on the card).  So the port's prewarm:
 * a first boot on the card, with no record yet, starts the builds of
   ``BOOT_DEFAULT`` (:func:`build_boot_default`), the sources every Score
   and every default Assign launch, each on a thread of its own: side by
-  side, the top-k's ``nvcc`` run hides under the cycle kernel's, where
+  side, the Score's two ``nvcc`` runs hide under the cycle kernel's, where
   inline the first Score and the first Assign would pay them one after
   the other.  A launch that needs one waits on its build under way.
 
@@ -30,7 +30,8 @@ The two tables below map the reference's onto the port's launch ledger
 boundaries (``obs/devprof.py``): every registered boundary is in exactly
 one of them.  ``PREWARM_BOUNDARIES`` launch a hand kernel, whose build is
 what the runner replays; ``PREWARM_EXCLUDED`` run plain PyTorch on the
-device and build nothing.
+device and build nothing, or launch a kernel only through a nested
+boundary that ``PREWARM_BOUNDARIES`` lists.
 """
 
 from __future__ import annotations
@@ -62,35 +63,40 @@ logger = logging.getLogger(__name__)
 PREWARM_FILENAME = "prewarm.json"
 
 # the sources a record-less boot builds: the Score's top-k
-# (``solver/topk.py``) and K1/K2 (``solver/dense.py``, ``solver/wide.py``),
-# each ``KERNEL_SOURCE`` with no defines
-BOOT_DEFAULT = ("solver/topk_cuda.cu", "solver/cycle_cuda.cu")
+# (``solver/topk.py``), its Filter+Score (``solver/score_kernel.py``) and
+# K1/K2 (``solver/dense.py``, ``solver/wide.py``), each ``KERNEL_SOURCE``
+# with no defines
+BOOT_DEFAULT = ("solver/topk_cuda.cu", "solver/score_cuda.cu", "solver/cycle_cuda.cu")
 
-# boundaries whose launch builds a kernel variant (K1, K2, K3, the top-k)
+# boundaries whose launch builds a kernel variant (K1, K2, K3, the top-k,
+# the Score's Filter+Score), on the card
 PREWARM_BOUNDARIES = (
     "solver.dense.cycle_dense_cuda",
     "solver.wide.cycle_wide_cuda",
     "solver.wide.wave_cycle_cuda",
     "solver.topk.masked_top_k",
+    "solver.score_kernel.score_cells",
 )
 
 _PLAIN = "plain PyTorch on the device: nothing to build"
+_NESTED = ("launches the Score's Filter+Score through the nested boundary "
+           "solver.score_kernel.score_cells, whose row replays the build")
 PREWARM_EXCLUDED: Dict[str, str] = {
     "parallel.shard_assign._assign_sharded": _PLAIN,
     "parallel.shard_assign._cycle_operands": _PLAIN,
     "parallel.shard_assign._assign_waves": _PLAIN,
-    "solver.candidates._build": _PLAIN,
-    "solver.candidates._build_sharded": _PLAIN,
-    "solver.candidates._count_blocks": _PLAIN,
-    "solver.candidates._count_blocks_sharded": _PLAIN,
-    "solver.candidates._refresh": _PLAIN,
-    "solver.candidates._refresh_sharded": _PLAIN,
+    "solver.candidates._build": _NESTED,
+    "solver.candidates._build_sharded": _NESTED,
+    "solver.candidates._count_blocks": _NESTED,
+    "solver.candidates._count_blocks_sharded": _NESTED,
+    "solver.candidates._refresh": _NESTED,
+    "solver.candidates._refresh_sharded": _NESTED,
     "solver.candidates._score_sharded": _PLAIN,
     "solver.candidates.score_candidates": _PLAIN,
-    "solver.greedy.score_cycle": _PLAIN,
-    "solver.greedy.score_cycle_sharded": _PLAIN,
-    "solver.incremental._rescore_sharded": _PLAIN,
-    "solver.incremental.rescore_dirty": _PLAIN,
+    "solver.greedy.score_cycle": _NESTED,
+    "solver.greedy.score_cycle_sharded": _NESTED,
+    "solver.incremental._rescore_sharded": _NESTED,
+    "solver.incremental.rescore_dirty": _NESTED,
     "solver.resident._scatter_flat_sharded": _PLAIN,
     "solver.resident.apply_flat_delta": _PLAIN,
     "solver.terms.term_extras": _PLAIN,

@@ -14,8 +14,11 @@ The Score side is exported here too, as in the reference: ``score_all``/
 (``topk.py``), ``rescore_dirty`` (``incremental.py``) and the sparse
 candidate engine (``candidates.py``).  They are plain PyTorch on the
 snapshot's device, as the reference runs them as XLA programs outside any
-Pallas kernel, but for ``masked_top_k``, which on the card launches a
-hand-written kernel (``topk_cuda.cu``) for ``k`` up to 32.
+Pallas kernel, but for two hand-written kernels on the card: the
+Filter+Score of dense node tables (``score_kernel.py``, ``score_cuda.cu``),
+through which ``score_all``, ``feasibility_mask`` and ``rescore_dirty``
+write their cells, and ``masked_top_k`` (``topk_cuda.cu``) for ``k`` up to
+32.
 """
 
 import logging

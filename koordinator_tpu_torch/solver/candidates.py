@@ -43,12 +43,8 @@ import torch
 
 from koordinator_tpu_torch.obs import devprof
 from koordinator_tpu_torch.solver.greedy import feasibility_mask, score_all
-from koordinator_tpu_torch.solver.incremental import (
-    _pad_rows,
-    _take_nodes,
-    _take_pods,
-    _upload_rows,
-)
+from koordinator_tpu_torch.solver.incremental import _pad_rows, _upload_rows
+from koordinator_tpu_torch.solver.score_kernel import _take_nodes, _take_pods
 from koordinator_tpu_torch.solver.topk import masked_top_k
 
 # Node-axis sweep width of the blocked feasibility pass (a power of two:

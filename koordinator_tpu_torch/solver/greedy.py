@@ -15,11 +15,12 @@ the loop: pods of a gang below minMember are marked WAIT_GANG.
 ``score_all`` is the one statement of the stateless Filter+Score of every
 (pod, node) cell, the Score RPC's tensor program (``score_cycle``): every
 term reads one pod row and one node row, so the incremental rescore and
-the sparse candidate engine get the same bits from gathered rows.  Node
-tables are [N, ...] or rows gathered per pod ([P, C, ...]); the pod side
-broadcasts as ``[P, 1, ...]``.  Pod rows are computed in chunks
-(``by_pod_rows``), which bounds the [rows, N, R] temporaries and changes no
-bit.
+the sparse candidate engine get the same bits from any subset of rows.
+Node tables are [N, ...] or rows gathered per pod ([P, C, ...]); the pod
+side broadcasts as ``[P, 1, ...]``.  The eager body (``_score_block``)
+computes pod rows in chunks (``by_pod_rows``), which bounds the [rows, N,
+R] temporaries and changes no bit; on the card the dense form is one
+kernel launch instead (``solver/score_kernel.py``).
 """
 
 from __future__ import annotations
@@ -529,8 +530,16 @@ def feasibility_mask(
 ) -> torch.Tensor:
     """The mask half of :func:`score_all`: requests fit, node validity,
     the LoadAware masks and every enabled term's mask, with no scoring
-    arithmetic.  The sparse candidate engine sweeps it blockwise."""
-    return by_pod_rows(_feasibility_block, snapshot, cfg)[0]
+    arithmetic.  The sparse candidate engine sweeps it blockwise.  Dense
+    node tables take the mask-only variant of ``solver/score_kernel.py
+    score_cells``."""
+    if snapshot.nodes.valid.dim() != 1:
+        return by_pod_rows(_feasibility_block, snapshot, cfg)[0]
+    from koordinator_tpu_torch.solver.score_kernel import score_cells
+
+    feasible = torch.empty(cell_shape(snapshot), dtype=torch.bool, device=snapshot.device)
+    score_cells(snapshot, cfg, feasible)
+    return feasible
 
 
 def _score_block(snapshot: ClusterSnapshot, cfg: CycleConfig):
@@ -548,8 +557,21 @@ def score_all(snapshot: ClusterSnapshot, cfg: CycleConfig = DEFAULT_CYCLE_CONFIG
     bool[P, N]) on the snapshot's device: the reference's Filter+Score for
     each pending pod against the snapshot as it is (no Reserve within the
     batch), with the fused terms.  Composed of the mask half
-    (:func:`feasibility_mask`) and the score half; the halves commute."""
-    return by_pod_rows(_score_block, snapshot, cfg)
+    (:func:`feasibility_mask`) and the score half; the halves commute.
+
+    Dense node tables go through ``solver/score_kernel.py score_cells``,
+    which writes every cell into the two tensors (one kernel launch on the
+    card, the eager body below elsewhere); node rows gathered per pod
+    ([P, C, ...], the sparse candidate engine's) run the eager body."""
+    if snapshot.nodes.valid.dim() != 1:
+        return by_pod_rows(_score_block, snapshot, cfg)
+    from koordinator_tpu_torch.solver.score_kernel import score_cells
+
+    shape, dev = cell_shape(snapshot), snapshot.device
+    scores = torch.empty(shape, dtype=torch.int64, device=dev)
+    feasible = torch.empty(shape, dtype=torch.bool, device=dev)
+    score_cells(snapshot, cfg, feasible, scores)
+    return scores, feasible
 
 
 @devprof.boundary("solver.greedy.score_cycle")

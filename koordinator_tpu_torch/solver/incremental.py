@@ -4,20 +4,21 @@ Counterpart of ``koordinator_tpu/solver/incremental.py``.
 A warm delta Sync touches a few node rows and pod rows; this module
 recomputes only what they invalidated:
 
-* **dirty columns**: gather the dirty node rows, score every pod against
-  them (O(P x d)) and scatter the [P, d] block into the resident tensors;
-* **dirty rows**: gather the dirty pod rows, score them against every node
-  (O(d_p x N)) and scatter the [d_p, N] block.
+* **dirty columns**: score every pod against the dirty node rows
+  (O(P x d)), each cell written at its place in the resident tensors;
+* **dirty rows**: score the dirty pod rows against every node (O(d_p x
+  N)), written the same way.
 
-Every cell of ``score_all`` reads one pod row and one node row, so
-gather-score-scatter writes the same bits a full ``score_cycle`` would;
+Both passes are ``solver/score_kernel.py score_cells`` over an index
+vector (one kernel launch each on the card): no [P, d] block is built and
+nothing is scattered.  Every cell of ``score_all`` reads one pod row and
+one node row, so each pass writes the bits a full ``score_cycle`` would;
 cells outside the dirty rows and columns keep the last launch's bits.
 
 Row indices are padded to the power-of-two buckets of
 ``solver/resident.py`` (pad slots carry the out-of-range sentinel, as in
 the reference); the pad slots, whose results the reference drops, are
-sliced off by their host-known count before each scatter, so no
-out-of-range index reaches the device.
+left out by their host-known count, so no out-of-range index is read.
 
 ``scores`` is updated in place (the reference donates it); ``feasible`` is
 never written: the result holds a new tensor, because in-flight readbacks
@@ -26,50 +27,12 @@ may still hold the one given.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from koordinator_tpu_torch.model.snapshot import pad_bucket
 from koordinator_tpu_torch.obs import devprof
-from koordinator_tpu_torch.solver.greedy import score_all
-
-
-def _take_nodes(nodes, idx):
-    """NodeBatch with rows gathered at ``idx`` (in range by contract:
-    callers clip).  ``idx`` of shape [d] gives [d, ...] leaves, [P, C]
-    gives rows gathered per pod.  Optional leaves stay None; names stay."""
-    take = lambda a: None if a is None else a[idx]  # noqa: E731
-    return dataclasses.replace(
-        nodes,
-        allocatable=take(nodes.allocatable),
-        requested=take(nodes.requested),
-        usage=take(nodes.usage),
-        metric_fresh=take(nodes.metric_fresh),
-        valid=take(nodes.valid),
-        agg_usage=take(nodes.agg_usage),
-        agg_fresh=take(nodes.agg_fresh),
-        prod_usage=take(nodes.prod_usage),
-        accel_type=take(nodes.accel_type),
-    )
-
-
-def _take_pods(pods, idx):
-    take = lambda a: None if a is None else a[idx]  # noqa: E731
-    return dataclasses.replace(
-        pods,
-        requests=take(pods.requests),
-        estimated=take(pods.estimated),
-        priority_class=take(pods.priority_class),
-        qos=take(pods.qos),
-        priority=take(pods.priority),
-        gang_id=take(pods.gang_id),
-        quota_id=take(pods.quota_id),
-        valid=take(pods.valid),
-        workload_class=take(pods.workload_class),
-        sensitivity=take(pods.sensitivity),
-    )
+from koordinator_tpu_torch.solver.score_kernel import score_cells
 
 
 def _pad_rows(rows, oob: int) -> np.ndarray:
@@ -90,26 +53,15 @@ def _upload_rows(padded: np.ndarray, oob: int, device):
 
 
 def _rescore_body(snapshot, scores, feasible, node_idx, n_nodes, pod_idx, n_pods, cfg):
-    """Column pass then row pass; the passes overlap on (dirty pod, dirty
-    node) cells with identical values.  ``n_nodes``/``n_pods``: how many
-    leading slots of the padded index vectors are scattered.  A pass with
-    nothing to scatter is skipped: the reference computes it and drops
-    every slot."""
-    nodes, pods = snapshot.nodes, snapshot.pods
-    n_rows = nodes.allocatable.shape[0]
-    p_rows = pods.requests.shape[0]
+    """Column pass then row pass, each written in place by ``score_cells``;
+    the passes overlap on (dirty pod, dirty node) cells with identical
+    values.  ``n_nodes``/``n_pods``: how many leading slots of the padded
+    index vectors are written.  A pass with nothing to write is skipped:
+    the reference computes it and drops every slot."""
     if n_nodes:
-        sub_nodes = _take_nodes(nodes, node_idx.clamp(0, n_rows - 1))
-        s_cols, f_cols = score_all(dataclasses.replace(snapshot, nodes=sub_nodes), cfg)
-        cols = node_idx[:n_nodes]
-        scores[:, cols] = s_cols[:, :n_nodes]
-        feasible[:, cols] = f_cols[:, :n_nodes]
+        score_cells(snapshot, cfg, feasible, scores, node_idx=node_idx, n_nodes=n_nodes)
     if n_pods:
-        sub_pods = _take_pods(pods, pod_idx.clamp(0, p_rows - 1))
-        s_rows, f_rows = score_all(dataclasses.replace(snapshot, pods=sub_pods), cfg)
-        rows = pod_idx[:n_pods]
-        scores[rows] = s_rows[:n_pods]
-        feasible[rows] = f_rows[:n_pods]
+        score_cells(snapshot, cfg, feasible, scores, pod_idx=pod_idx, n_pods=n_pods)
     return scores, feasible
 
 

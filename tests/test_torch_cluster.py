@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from koordinator_tpu_torch import _build
-from koordinator_tpu_torch.solver import cluster, dense, topk, wide
+from koordinator_tpu_torch.solver import cluster, dense, score_kernel, topk, wide
 
 I32_MIN = cluster.I32_MIN
 I64_MIN = cluster.I64_MIN
@@ -272,8 +272,9 @@ class TestBuildDigest:
 def test_cluster_kernels_launch_one_cluster_and_keep_no_one_cta_body():
     on_disk = sorted(str(p.relative_to(_build.PACKAGE_DIR))
                      for p in (_build.PACKAGE_DIR / "solver").glob("*.cu"))
-    # the cycle kernels' sources, and the Score program's top-k
-    assert on_disk == sorted(KERNEL_SOURCES + [topk.KERNEL_SOURCE])
+    # the cycle kernels' sources, and the Score program's top-k and
+    # Filter+Score
+    assert on_disk == sorted(KERNEL_SOURCES + [topk.KERNEL_SOURCE, score_kernel.KERNEL_SOURCE])
     k12 = (_build.PACKAGE_DIR / dense.KERNEL_SOURCE).read_text()
     k3 = (_build.PACKAGE_DIR / wide.KERNEL_SOURCE).read_text()
     hdr = (_build.PACKAGE_DIR / "solver/cluster_state.cuh").read_text()

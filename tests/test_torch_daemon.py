@@ -400,16 +400,18 @@ def test_a_failed_prewarm_build_is_counted_and_named(tmp_path, monkeypatch):
 
 
 def test_a_first_boot_builds_the_boot_default_side_by_side(tmp_path, monkeypatch):
-    """With no record, a card daemon builds the top-k and K1/K2 sources at
-    once, each on its own thread; a CPU daemon, or one with a record, starts
-    none (the runner replays the record)."""
+    """With no record, a card daemon builds the top-k, the Score's
+    Filter+Score and the K1/K2 sources at once, each on its own thread; a
+    CPU daemon, or one with a record, starts none (the runner replays the
+    record)."""
     import threading
 
     from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.obs import prewarm
-    from koordinator_tpu_torch.solver import dense, topk
+    from koordinator_tpu_torch.solver import dense, score_kernel, topk
 
-    assert prewarm.BOOT_DEFAULT == (topk.KERNEL_SOURCE, dense.KERNEL_SOURCE)
+    assert prewarm.BOOT_DEFAULT == (topk.KERNEL_SOURCE, score_kernel.KERNEL_SOURCE,
+                                    dense.KERNEL_SOURCE)
     together = threading.Barrier(len(prewarm.BOOT_DEFAULT), timeout=WAIT_S)
     built = []
 

@@ -54,6 +54,7 @@ BOUNDARIES = (
     "solver.incremental.rescore_dirty",
     "solver.resident._scatter_flat_sharded",
     "solver.resident.apply_flat_delta",
+    "solver.score_kernel.score_cells",
     "solver.terms.term_extras",
     "solver.topk.masked_top_k",
     "solver.wide.cycle_wide_cuda",
@@ -106,12 +107,15 @@ def _series(registry, family):
 
 def test_every_serving_boundary_is_registered():
     from koordinator_tpu_torch.parallel import shard_assign
-    from koordinator_tpu_torch.solver import dense, greedy, incremental, terms, topk, wide
+    from koordinator_tpu_torch.solver import (
+        dense, greedy, incremental, score_kernel, terms, topk, wide,
+    )
 
     assert set(BOUNDARIES) <= set(devprof.boundaries())
     modules = {"candidates": candidates, "dense": dense, "greedy": greedy,
                "incremental": incremental, "resident": resident, "terms": terms,
-               "topk": topk, "wide": wide, "shard_assign": shard_assign}
+               "topk": topk, "wide": wide, "shard_assign": shard_assign,
+               "score_kernel": score_kernel}
     for name in BOUNDARIES:
         _, module, fn_name = name.split(".")
         fn = getattr(modules[module], fn_name)
