@@ -937,6 +937,7 @@ def topk_phase(card, dev):
     import numpy as np
     import torch
 
+    from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.harness import generators as g
     from koordinator_tpu_torch.solver import topk
 
@@ -944,11 +945,12 @@ def topk_phase(card, dev):
 
     def check(s, f, k, what, hi=None):
         checks.append(what)
-        before = dict(topk.LAUNCHES)
+        before = _build.launch_counts(*TOPK_PATHS)
         got = topk.masked_top_k(s, f, k=k, hi=hi)
         torch.cuda.synchronize()
-        if topk.LAUNCHES != {**before, "topk_kernel": before["topk_kernel"] + 1}:
-            raise AssertionError(f"topk {what}: launches {before} -> {topk.LAUNCHES}")
+        after = _build.launch_counts(*TOPK_PATHS)
+        if after != {**before, "topk_kernel": before["topk_kernel"] + 1}:
+            raise AssertionError(f"topk {what}: launches {before} -> {after}")
         want = topk.masked_top_k_plain(s, f, k=k, hi=hi)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                 and got[1].dtype == torch.int32):
@@ -963,7 +965,7 @@ def topk_phase(card, dev):
     s, f = cells(TOPK_CELL, 22, 200)
     checked = []
     torch.cuda.synchronize()
-    topk.reset_launches()
+    zero_counts(TOPK_PATHS)
     for k in (1, 8, 16, 32):
         check(s, f, k, f"{P} x {N} k={k}", hi=199)
         checked.append(f"{P}x{N} k={k}")
@@ -986,7 +988,7 @@ def topk_phase(card, dev):
     check(padded_s, padded_f, k, f"{PP} x {NP} padded k={k}", hi=199)
     checked.append(f"{PP}x{NP} padded k={k}")
     # the checks' launches, one each; the timing loops below are not counted
-    launches = dict(topk.LAUNCHES)
+    launches = _build.launch_counts(*TOPK_PATHS)
     if launches != {"topk_kernel": len(checks), "topk_sort": 0}:
         raise AssertionError(f"topk: {len(checks)} checks launched {launches}")
     timed = {}
@@ -1045,6 +1047,7 @@ def score_kernel_phase(card, dev):
     import numpy as np
     import torch
 
+    from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.config import CycleConfig
     from koordinator_tpu_torch.harness import generators as g
     from koordinator_tpu_torch.solver import score_kernel as sk
@@ -1059,10 +1062,10 @@ def score_kernel_phase(card, dev):
                   torch.ones((P, N), dtype=torch.bool, device=dev))
         scores = None if mask_only else before[0].clone()
         feasible = before[1].clone()
-        launches = sum(sk.LAUNCHES.values())
+        launches = sum(_build.launch_counts(*sk.VARIANTS).values())
         sk.score_cells(snap, cfg, feasible, scores, **kwargs)
         torch.cuda.synchronize()
-        if sum(sk.LAUNCHES.values()) != launches + 1:
+        if sum(_build.launch_counts(*sk.VARIANTS).values()) != launches + 1:
             raise AssertionError(f"score {what}: not one launch")
         want_s = None if mask_only else before[0].clone()
         want_f = before[1].clone()
@@ -1072,7 +1075,7 @@ def score_kernel_phase(card, dev):
         checked.append(what)
 
     torch.cuda.synchronize()
-    sk.reset_launches()
+    zero_counts(SCORE_COUNTS)
     grids = {}
     for name, pods, nodes, pod_bucket, node_bucket in SCORE_GRIDS:
         snap = g.quota_colocation_snapshot(pods=pods, nodes=nodes, pod_bucket=pod_bucket,
@@ -2502,6 +2505,7 @@ def daemon_phase(card, dev, lists, headline, snap):
 
     import torch
 
+    from koordinator_tpu_torch import _build
     from koordinator_tpu_torch.analysis.retrace_guard import retrace_guard
     from koordinator_tpu_torch.bridge import wire
     from koordinator_tpu_torch.bridge.client import ScorerClient, parse_snapshot_id
@@ -2513,7 +2517,7 @@ def daemon_phase(card, dev, lists, headline, snap):
     from koordinator_tpu_torch.replication import codec
     from koordinator_tpu_torch.replication.follower import promote_replica
     from koordinator_tpu_torch.scheduler.server import SchedulerServer
-    from koordinator_tpu_torch.solver import dense, run_cycle, topk, wide
+    from koordinator_tpu_torch.solver import run_cycle
 
     P, N = len(lists[1]), len(lists[0])
     K = 32
@@ -2532,13 +2536,10 @@ def daemon_phase(card, dev, lists, headline, snap):
     def uncounted(fn):
         """``fn()`` (an in-process comparison) without touching the counts."""
         torch.cuda.synchronize()
-        saved_dense, saved_wide = dense.LAUNCHES, dict(wide.LAUNCHES)
-        saved_topk = dict(topk.LAUNCHES)
+        saved = _build.launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        dense.LAUNCHES = saved_dense
-        wide.LAUNCHES.update(saved_wide)
-        topk.LAUNCHES.update(saved_topk)
+        _build.reset_launch_counts(saved)
         return out
 
     def start(name, **kw):
@@ -2784,23 +2785,34 @@ def daemon_phase(card, dev, lists, headline, snap):
 # ---------------------------------------------------------------------------
 
 
-def kernel_counts():
-    """Each kernel's launches since the counts were last set to 0."""
-    from koordinator_tpu_torch.solver import dense, wide
+# the launch table's names (``_build.launch_counts``): the cycle kernels,
+# the top-k's two paths, the Score kernel's variants and their cells
+CYCLE_KERNELS = ("cycle_dense", "cycle_wide", "wave_cycle")
+TOPK_PATHS = ("topk_kernel", "topk_sort")
+SCORE_COUNTS = ("scores", "mask", "scores_cells", "mask_cells")
 
-    return {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+
+def kernel_counts():
+    """Each cycle kernel's launches since the counts were last set to 0."""
+    from koordinator_tpu_torch import _build
+
+    return _build.launch_counts(*CYCLE_KERNELS)
+
+
+def zero_counts(names):
+    """The launch table's counts under ``names`` set to 0, the others kept."""
+    from koordinator_tpu_torch import _build
+
+    _build.reset_launch_counts({**_build.launch_counts(), **dict.fromkeys(names, 0)})
 
 
 def reset_counts():
-    """Every launch count set to 0, the device idle first."""
+    """The cycle kernels' and the top-k's launch counts set to 0, the
+    device idle first."""
     import torch
 
-    from koordinator_tpu_torch.solver import dense, topk, wide
-
     torch.cuda.synchronize()
-    dense.reset_launches()
-    wide.reset_launches()
-    topk.reset_launches()
+    zero_counts(CYCLE_KERNELS + TOPK_PATHS)
 
 
 def only_k2(name, launches):
@@ -4270,15 +4282,11 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
     from koordinator_tpu_torch.harness.golden import build_sync_request
     from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
     from koordinator_tpu_torch.solver import (
-        build_candidates, dense, kernel_demotions, refresh_candidates, run_cycle,
-        score_candidates, topk, wide,
+        build_candidates, kernel_demotions, refresh_candidates, run_cycle, score_candidates,
     )
 
     t_line = time.perf_counter()
-    torch.cuda.synchronize()
-    dense.reset_launches()
-    wide.reset_launches()
-    topk.reset_launches()
+    reset_counts()
     card_dev = dev if dev.type != "cuda" or dev.index is not None else torch.device(
         "cuda", torch.cuda.current_device())
     mesh = parallel.cluster_mesh([card_dev] * MESH_SHARDS)
@@ -4448,13 +4456,12 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
             raise AssertionError("mesh (c): incremental Score replies differ")
         serv["incremental_score_ms"] = {"mesh": m_ms, "single": s_ms}
         torch.cuda.synchronize()
-        before = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+        before = kernel_counts()
         ta = time.perf_counter()
         m_as = meshed.assign(wire.AssignRequest(snapshot_id=meshed.snapshot_id()))
         m_ms = (time.perf_counter() - ta) * 1e3
         torch.cuda.synchronize()
-        shard_launches = {k: v - before[k] for k, v in
-                          {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}.items()}
+        shard_launches = {k: v - before[k] for k, v in kernel_counts().items()}
         ta = time.perf_counter()
         s_as = single.assign(wire.AssignRequest(snapshot_id=single.snapshot_id()))
         s_ms = (time.perf_counter() - ta) * 1e3
@@ -4516,7 +4523,7 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
     line["legs_s"]["sparse"] = time.perf_counter() - t0
     del big
     torch.cuda.synchronize()
-    launches = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+    launches = kernel_counts()
     line["wall_s"] = time.perf_counter() - t_line
     line["budget_s"] = MESH_BUDGET_S
     if line["wall_s"] > MESH_BUDGET_S:
@@ -4603,7 +4610,7 @@ def main() -> int:
         WAVE_ANCHOR_CFG, WAVE_ANCHOR_ROUNDS, cycle_digest,
     )
     from koordinator_tpu_torch.solver import (
-        dense, greedy_assign, kernel_demotions, run_cycle, score_kernel, topk, wide,
+        dense, greedy_assign, kernel_demotions, run_cycle, score_kernel, wide,
     )
     from koordinator_tpu_torch.solver.terms import default_term_config, term_extras
     from koordinator_tpu_torch.config import CycleConfig
@@ -4619,10 +4626,9 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = now - clock[0]
         clock[0] = now
-        topk_lines[name.split("_", 1)[1]] = dict(topk.LAUNCHES)
-        topk.reset_launches()
-        score_lines[name.split("_", 1)[1]] = dict(score_kernel.LAUNCHES)
-        score_kernel.reset_launches()
+        topk_lines[name.split("_", 1)[1]] = _build.launch_counts(*TOPK_PATHS)
+        score_lines[name.split("_", 1)[1]] = _build.launch_counts(*score_kernel.VARIANTS)
+        zero_counts(TOPK_PATHS + SCORE_COUNTS)
 
     # phase 1
     card = card_line()
@@ -4730,13 +4736,10 @@ def main() -> int:
         """``call()`` with every launch count set to 0 just before it;
         exact against ``want``, no demotion.  Returns (result,
         {kernel: launches})."""
-        torch.cuda.synchronize()
-        dense.reset_launches()
-        wide.reset_launches()
-        topk.reset_launches()
+        reset_counts()
         out = call()
         torch.cuda.synchronize()
-        counts = {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES}
+        counts = kernel_counts()
         if out.path != "cuda" or kernel_demotions():
             raise AssertionError(f"{name}: path {out.path}, demotions {kernel_demotions()}")
         assert_same(name, out, want)

@@ -190,13 +190,60 @@ def entry(source: str, name: str, argtypes, defines=()):
     return fn
 
 
-def read_counters(source: str, name: str, count: int) -> tuple:
-    """Call the instrumented build's counter entry ``name(unsigned long
-    long* out)``, which copies ``count`` device counters (its phase clocks)
-    to ``out`` and resets them; raise on a CUDA error."""
-    fn = entry(source, name, [ctypes.c_void_p], PHASE_CLOCK)
-    out = (ctypes.c_ulonglong * count)()
-    err = fn(out)
+def call(source: str, name: str, argtypes, *args, defines=()):
+    """Call the C entry point ``name`` of ``source``'s build with
+    ``defines`` on ``args`` (``entry``); raise naming it and the cudaError
+    on a non-zero return."""
+    err = entry(source, name, argtypes, defines)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
+
+
+# Launches of each hand-written kernel in this process, by the name its
+# wrapper gives it, and ``<name>_cells`` where the launch counts its cells.
+# Counted on the host under ``_LOCK``; a launch adds no device work and no
+# host read.
+_COUNTS = {}
+
+
+def count(kernel: str, cells: int = 0) -> None:
+    """Add one to ``kernel``'s count (and ``cells`` to its cells) in the
+    launch table."""
+    with _LOCK:
+        _COUNTS[kernel] = _COUNTS.get(kernel, 0) + 1
+        if cells:
+            key = f"{kernel}_cells"
+            _COUNTS[key] = _COUNTS.get(key, 0) + cells
+
+
+def launch(kernel: str, source: str, name: str, argtypes, *args, defines=(), cells: int = 0):
+    """Launch the C entry point ``name`` of ``source`` on ``args`` (``call``,
+    which raises on a refused launch), then count it as ``kernel``."""
+    call(source, name, argtypes, *args, defines=defines)
+    count(kernel, cells)
+
+
+def launch_counts(*names) -> dict:
+    """The launch table's counts under ``names`` (0 for a name not yet
+    counted), or a copy of the whole table with no names."""
+    with _LOCK:
+        if not names:
+            return dict(_COUNTS)
+        return {name: _COUNTS.get(name, 0) for name in names}
+
+
+def reset_launch_counts(counts=None) -> None:
+    """Empty the launch table, or set it to ``counts`` (a copy that
+    ``launch_counts()`` gave)."""
+    with _LOCK:
+        _COUNTS.clear()
+        _COUNTS.update(counts or {})
+
+
+def read_counters(source: str, name: str, n: int) -> tuple:
+    """Call the instrumented build's counter entry ``name(unsigned long
+    long* out)``, which copies ``n`` device counters (its phase clocks)
+    to ``out`` and resets them; raise on a CUDA error."""
+    out = (ctypes.c_ulonglong * n)()
+    call(source, name, [ctypes.c_void_p], out, defines=PHASE_CLOCK)
     return tuple(int(v) for v in out)

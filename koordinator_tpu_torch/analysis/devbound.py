@@ -4,8 +4,8 @@ path registers with the launch ledger (``obs/devprof.py``).
 Counterpart of ``koordinator_tpu/analysis/devbound.py``; the rule id is
 the reference's.  In the port a "jit boundary" is a function that
 launches a hand-written kernel: it takes the C entry point with
-``_build.entry(...)`` and calls it with a CUDA stream
-(``analysis/jitscope.py launches_kernel``).  A launch the ledger does not
+``_build.entry(...)`` and calls it with a CUDA stream, or hands the stream
+to ``_build.launch(...)`` (``analysis/jitscope.py launches_kernel``).  A launch the ledger does not
 see escapes its build records, its sampled device time, the /metrics
 families and the /healthz ``device`` block.  Lexically and
 module-locally, as in the reference, under ``solver/``, ``bridge/`` and
@@ -106,7 +106,7 @@ def check(source: SourceFile) -> List[Violation]:
         return []
     out: List[Violation] = []
     registered = []
-    entries = any(jitscope.build_call(n) == "entry" for n in source.nodes)
+    entries = any(jitscope.build_call(n) in jitscope.ENTRY_CALLS for n in source.nodes)
     for node in source.nodes:
         if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             continue

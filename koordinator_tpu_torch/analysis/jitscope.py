@@ -9,18 +9,18 @@ device programs are
   ``@devprof.boundary("<name>")`` (``obs/devprof.py``): its body runs
   eagerly on every call and enqueues device work on the caller's stream;
 * a function that launches a hand-written kernel: it takes the C entry
-  point with ``_build.entry(source, name, argtypes, defines)``
-  (``_build.py``) and calls it with a CUDA stream
-  (``torch.cuda.current_stream(...).cuda_stream``), the port's launch
-  convention.  A function that takes an entry and passes no stream calls a
-  host-only query (the ``koord_*_plan`` occupancy entries), which launches
-  nothing.
+  point with ``_build.entry(source, name, argtypes, defines)`` and calls it
+  with a CUDA stream (``torch.cuda.current_stream(...).cuda_stream``), or
+  hands the stream to ``_build.launch``/``_build.call``, which take the
+  entry themselves (``_build.py``): the port's launch convention.  A
+  function that takes an entry and passes no stream calls a host-only
+  query (the ``koord_*_plan`` occupancy entries), which launches nothing.
 
 A kernel's build key is ``(source, defines)``: each distinct ``defines``
 is one more ``nvcc`` build and one more library in the process, the port's
 form of a retrace.  ``defines_arg`` finds that argument on
 ``_build.entry``/``_build.build`` calls and on any call that passes
-``defines=``.
+``defines=`` (``_build.launch``/``_build.call`` take it by keyword only).
 
 Flow-insensitive and module-local by design, like the reference: a device
 program imported from another module is seen in its own module.
@@ -32,8 +32,10 @@ import ast
 from typing import Iterator, List, Optional
 
 # the ``_build`` entry points that key a kernel variant, and the index of
-# their positional ``defines`` argument
-_BUILD_CALLS = {"entry": 3, "build": 1}
+# their positional ``defines`` argument (None: keyword only)
+_BUILD_CALLS = {"entry": 3, "build": 1, "call": None, "launch": None}
+# the ones that take a kernel's C entry point
+ENTRY_CALLS = ("entry", "call", "launch")
 
 
 def attr_chain(node: ast.AST) -> tuple:
@@ -79,8 +81,9 @@ def is_boundary_def(node: ast.AST) -> bool:
 
 
 def build_call(node: ast.AST) -> Optional[str]:
-    """``"entry"``/``"build"`` for a ``_build.entry(...)``/``_build.build(...)``
-    call (or the bare names inside ``_build.py``), else None."""
+    """The name of a ``_build`` call that keys a kernel variant
+    (``_BUILD_CALLS``: ``_build.entry(...)``, ``_build.launch(...)``, ...,
+    or a bare ``entry(...)`` inside ``_build.py``), else None."""
     if not isinstance(node, ast.Call):
         return None
     chain = attr_chain(node.func)
@@ -103,6 +106,8 @@ def defines_arg(call: ast.Call) -> Optional[ast.AST]:
     if kind is None:
         return None
     pos = _BUILD_CALLS[kind]
+    if pos is None:
+        return None
     if any(isinstance(a, ast.Starred) for a in call.args[: pos + 1]):
         return None
     if len(call.args) > pos:
@@ -118,14 +123,15 @@ def _mentions_stream(node: ast.AST) -> bool:
 
 
 def launches_kernel(func: ast.AST) -> bool:
-    """True when ``func`` takes a kernel entry (``_build.entry``) and hands
+    """True when ``func`` takes a kernel entry (``ENTRY_CALLS``) and hands
     a CUDA stream to a call: the port's launch convention.  An entry
     called with no stream is a host-only query."""
     takes_entry = False
     streams = False
     for node in scope_walk(func, into_closures=True):
-        if build_call(node) == "entry":
+        if build_call(node) in ENTRY_CALLS:
             takes_entry = True
+            streams = streams or any(_mentions_stream(a) for a in node.args)
         elif isinstance(node, ast.Call) and any(
             _mentions_stream(a) for a in list(node.args) + [k.value for k in node.keywords]
         ):
@@ -163,7 +169,7 @@ def device_programs(tree: ast.AST, nodes=None) -> List[ast.FunctionDef]:
     a boundary is part of its parent's scope (``scope_walk``), not listed
     again."""
     out: List[ast.FunctionDef] = []
-    entries = any(build_call(n) == "entry" for n in (nodes or ast.walk(tree)))
+    entries = any(build_call(n) in ENTRY_CALLS for n in (nodes or ast.walk(tree)))
 
     def visit(node: ast.AST, inside: bool) -> None:
         for child in ast.iter_child_nodes(node):

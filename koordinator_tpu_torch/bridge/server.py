@@ -51,18 +51,19 @@ client Sync, a full frame onto a fresh ``ResidentState``.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import logging
 import os
 import threading
 import time
 import uuid
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from koordinator_tpu_torch import resolve_device
+from koordinator_tpu_torch import _build, resolve_device
 from koordinator_tpu_torch.bridge import wire
 from koordinator_tpu_torch.bridge.coalesce import (
     AdaptiveGatherWindow,
@@ -191,11 +192,37 @@ def _note_counts(scope, status: np.ndarray, held_bound) -> None:
 SCORE_COUNTERS = ("score_kernel_launches", "score_kernel_cells")
 
 
+def _score_kernel_totals() -> tuple:
+    """(launches, cells) of the Score kernel's variants together, this
+    process, from ``_build``'s launch table."""
+    cells = [f"{v}_cells" for v in score_kernel.VARIANTS]
+    return (sum(_build.launch_counts(*score_kernel.VARIANTS).values()),
+            sum(_build.launch_counts(*cells).values()))
+
+
 def _score_kernel_since(before) -> tuple:
     """One Score's launches of the Score kernel and their cells since
-    ``before`` (``score_kernel.totals()``), both taken inside its launch
+    ``before`` (``_score_kernel_totals()``), both taken inside its launch
     section, which no other launch shares."""
-    return tuple(a - b for a, b in zip(score_kernel.totals(), before))
+    return tuple(a - b for a, b in zip(_score_kernel_totals(), before))
+
+
+@dataclasses.dataclass
+class _ScoreRun:
+    """One Score engine's launch as the shared readback takes it: the
+    padded top-k with its validity, and what the two engines do apart."""
+
+    top_scores: torch.Tensor
+    top_idx: torch.Tensor
+    ok: torch.Tensor
+    # the tensors read back beside the top-k, in the same transfer; called
+    # once the device stage has closed
+    extras: Callable[[], tuple]
+    # takes the read-back extras, checks them (raising fails the launch)
+    # and gives the (scores, feasible) the brownout cache keeps
+    settle: Callable[[list], tuple]
+    span_attrs: dict = dataclasses.field(default_factory=dict)
+    telemetry: dict = dataclasses.field(default_factory=dict)  # _score_telemetry's keywords
 
 
 def _record_score_kernel(counts) -> None:
@@ -964,74 +991,26 @@ class ScorerServicer:
             for t in traced:
                 t.link_ref(launch_span.ref)
         launch_ref = None if launch_span is None else launch_span.ref
-        if sparse:
-            return self._score_launch_sparse(
-                accepted, snap, cres, sid, mirror_rows,
-                launch_span, launch_ref, t_exec,
-            )
         try:
             dev_span = device_stage(self.device)
             devprof.drain_notes()
-            kernel_before = score_kernel.totals()
+            kernel_before = _score_kernel_totals()
             N = snap.nodes.capacity
             P = snap.pods.capacity
-            ks = [min(int(e.req.top_k) or N, N) for e in accepted]
+            # the candidate engine ranks at most C cells a pod
+            k_cap = min(int(self.cfg.candidate_width), N) if sparse else N
+            ks = [min(int(e.req.top_k) or k_cap, k_cap) for e in accepted]
             # ONE launch serves every caller, at the batch max padded to a
             # power-of-two bucket; each caller's k is a prefix
-            k_launch = min(pad_bucket(max(ks)), N)
-            # engine order: memo (above) -> incremental rescore of the
-            # resident tensors -> full score_cycle; all three give the
-            # same tensors to the same masked top-k
-            scores = feasible = None
-            incr_result = None  # telemetry: incr | full | fallback
-            incr_cols = 0
-            if self._score_incr:
-                if incr is not None:
-                    ratio = (
-                        len(incr.dirty_nodes) / N + len(incr.dirty_pods) / P
-                    )
-                    if ratio <= self._score_incr_max_ratio:
-                        incr_cols = len(incr.dirty_nodes)
-                        try:
-                            scores, feasible = self._score_incremental(
-                                snap, incr
-                            )
-                            incr_result = "incr"
-                        except Exception:  # the full rescore below is the documented fallback; the residency is dropped so a torn tensor never serves
-                            logger.exception(
-                                "incremental rescore failed; falling "
-                                "back to a full score_cycle"
-                            )
-                            self.state.drop_score_residency()
-                            incr_result = "fallback"
-                    else:
-                        incr_result = "fallback"
-                else:
-                    incr_result = "full"  # nothing resident to advance
-            if scores is None:
-                if is_sharded(snap):
-                    # each shard's block on its own device, kept split for
-                    # the residency
-                    scores, feasible = score_cycle_sharded(snap, self.cfg)
-                else:
-                    scores, feasible = score_cycle(snap, self.cfg)
-            if self._score_incr:
-                self.state.store_score_result(self.cfg, scores, feasible)
-            # mesh-resident tensors are assembled on the lead device
-            scores, feasible = gather(scores), gather(feasible)
-            top_scores, top_idx = masked_top_k(
-                scores, feasible, k=k_launch,
-                hi=score_upper_bound(self.cfg),
-            )
-            ok = torch.gather(feasible, 1, top_idx.long())
+            k_launch = min(pad_bucket(max(ks)), k_cap)
+            if sparse:
+                run = self._score_sparse(snap, cres, k_launch)
+            else:
+                run = self._score_dense(snap, incr, k_launch)
             kernel_counts = _score_kernel_since(kernel_before)
             if dev_span is not None:
                 dev_span.close()
-            # the brownout cache's full tensors: a COPY of the scores,
-            # which the next incremental launch writes in place
-            cache_full = P * N <= self._brownout_full_cells
-            scores_cache = scores.clone() if cache_full else None
-            feasible_cache = feasible if cache_full else None
+            extras = run.extras()
             dispatched = (t_exec, time.perf_counter_ns())
             stage_at("dispatch", *dispatched)
             devprof_notes = devprof.drain_notes()
@@ -1045,24 +1024,27 @@ class ScorerServicer:
         def _readback():
             try:
                 t0 = time.perf_counter_ns()
-                ts, ti, ok_np, valid_np, scores_np, feasible_np = read_back(
-                    top_scores, top_idx, ok, local(snap.pods.valid), scores_cache,
-                    feasible_cache,
+                ts, ti, ok_np, valid_np, *extras_np = read_back(
+                    run.top_scores, run.top_idx, run.ok, local(snap.pods.valid),
+                    *(gather(t) for t in extras),
                 )
                 read = (t0, time.perf_counter_ns())
                 stage_at("readback", *read)
                 _record_score_kernel(kernel_counts)
                 if dev_span is not None:
                     dev_span.read()
+                scores_np, feasible_np = run.settle(extras_np)
                 if launch_span is not None:
                     launch_span.set_attr("k_bucket", k_launch)
-                    launch_span.set_attr("topk_path", topk_path(top_idx.device, k_launch))
+                    launch_span.set_attr("topk_path", topk_path(run.top_idx.device, k_launch))
+                    for name, value in run.span_attrs.items():
+                        launch_span.set_attr(name, value)
                     _devprof_span_attrs(launch_span, devprof_notes)
                     launch_span.end()
                 valid = valid_np[:P].astype(bool)
                 with self._state_lock:
                     self._publish_readback(sid, dict(
-                        kb=k_launch, N=N, P=P, ts=ts, ti=ti, ok=ok_np,
+                        kb=k_launch, N=k_cap, P=P, ts=ts, ti=ti, ok=ok_np,
                         valid=valid, launch_span=launch_ref,
                         nodes=mirror_rows[0], pods=mirror_rows[1],
                         scores=scores_np, feasible=feasible_np,
@@ -1088,132 +1070,126 @@ class ScorerServicer:
                     self.telemetry.abort_cycle("score", exc)
                 raise
             return lambda: self._score_telemetry(
-                assembled, sid, dispatched, read, exec_ms, n_failed,
-                incr_result=incr_result, incr_cols=incr_cols,
+                assembled, sid, dispatched, read, exec_ms, n_failed, **run.telemetry,
             )
 
         return _readback
 
     @launch_section
-    def _score_launch_sparse(self, accepted, snap, cres, sid, mirror_rows,
-                             launch_span, launch_ref, t_exec):
-        """Sparse candidate-set Score launch: score [P, C] gathered cells
-        instead of [P, N].  Reuses the resident candidate lists when
-        clean, merge-refreshes the dirty entries (reason "dirty"), and
-        rebuilds past the staleness bound ("stale") or with nothing
-        resident ("cold").  Where every pod's feasible fan-out fits C the
-        reply bytes equal the dense path's; otherwise the readback raises
-        :class:`CandidateOverflow`.  ``t_exec``: the launch section's start
-        (``perf_counter_ns``)."""
-        try:
-            dev_span = device_stage(self.device)
-            devprof.drain_notes()
-            kernel_before = score_kernel.totals()
-            N = snap.nodes.capacity
-            P = snap.pods.capacity
-            C = int(self.cfg.candidate_width)
-            k_cap = min(C, N)
-            ks = [min(int(e.req.top_k) or k_cap, k_cap) for e in accepted]
-            k_launch = min(pad_bucket(max(ks)), k_cap)
-            refresh_reason = None
-            merges = 0
-            if cres is None:
-                # the node mesh, when configured, splits the pipelined
-                # build's counts pass over its blocks
-                cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
-                refresh_reason = "cold"
-            elif cres.dirty_nodes or cres.dirty_pods:
-                if cres.merges >= self.cfg.candidate_max_stale:
-                    cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
-                    refresh_reason = "stale"
-                else:
-                    cand, count = refresh_candidates(
-                        snap, cres.idx, cres.count,
-                        sorted(cres.dirty_nodes), sorted(cres.dirty_pods),
-                        self.cfg,
-                    )
-                    refresh_reason = "dirty"
-                    merges = cres.merges + 1
-            else:
-                cand, count = cres.idx, cres.count
-            if refresh_reason is not None:
-                self.state.store_candidates(self.cfg, cand, count, merges)
-            scores, feasible = score_candidates(snap, cand, self.cfg)
-            top_scores, top_idx, top_ok = sparse_top_k(
-                scores, feasible, cand, k=k_launch,
-                hi=score_upper_bound(self.cfg),
-            )
-            kernel_counts = _score_kernel_since(kernel_before)
-            if dev_span is not None:
-                dev_span.close()
-            dispatched = (t_exec, time.perf_counter_ns())
-            stage_at("dispatch", *dispatched)
-            devprof_notes = devprof.drain_notes()
-        except Exception as exc:
-            if launch_span is not None:
-                launch_span.abort(exc)
-            with self._state_lock:
-                self.telemetry.abort_cycle("score", exc)
-            raise
-
-        def _readback():
-            try:
-                t0 = time.perf_counter_ns()
-                ts, ti, ok_np, count_np, valid_np = read_back(
-                    top_scores, top_idx, top_ok, gather(count), local(snap.pods.valid)
-                )
-                read = (t0, time.perf_counter_ns())
-                stage_at("readback", *read)
-                _record_score_kernel(kernel_counts)
-                if dev_span is not None:
-                    dev_span.read()
-                try:
-                    check_candidate_overflow(count_np, C)
-                except CandidateOverflow:
-                    # a truncating merge may have dropped real candidates:
-                    # drop the lists so the next sparse Score rebuilds
-                    self.state.drop_candidate_residency()
-                    raise
-                if launch_span is not None:
-                    launch_span.set_attr("k_bucket", k_launch)
-                    launch_span.set_attr("topk_path", topk_path(top_idx.device, k_launch))
-                    launch_span.set_attr("candidate_width", C)
-                    _devprof_span_attrs(launch_span, devprof_notes)
-                    launch_span.end()
-                valid = valid_np[:P].astype(bool)
-                with self._state_lock:
-                    # no full scores cached: the cache cannot invent
-                    # candidate columns this launch never scored
-                    self._publish_readback(sid, dict(
-                        kb=k_launch, N=k_cap, P=P, ts=ts, ti=ti, ok=ok_np,
-                        valid=valid, launch_span=launch_ref,
-                        nodes=mirror_rows[0], pods=mirror_rows[1],
-                        scores=None, feasible=None,
-                    ))
-                assembled = []
-                n_failed = 0
-                for entry, k in zip(accepted, ks):
+    def _score_dense(self, snap, incr, k_launch) -> _ScoreRun:
+        """The dense engine, in the launch section: the [P, N] scores by an
+        incremental rescore of the resident tensors ``incr`` when few enough
+        rows are dirty, else (or when it fails) a full ``score_cycle``, then
+        their masked top-k.  The brownout cache keeps a copy of the full
+        tensors of a small enough snapshot."""
+        N = snap.nodes.capacity
+        P = snap.pods.capacity
+        # engine order: memo (the caller's) -> incremental rescore of the
+        # resident tensors -> full score_cycle; all three give the same
+        # tensors to the same masked top-k
+        scores = feasible = None
+        incr_result = None  # telemetry: incr | full | fallback
+        incr_cols = 0
+        if self._score_incr:
+            if incr is not None:
+                ratio = len(incr.dirty_nodes) / N + len(incr.dirty_pods) / P
+                if ratio <= self._score_incr_max_ratio:
+                    incr_cols = len(incr.dirty_nodes)
                     try:
-                        entry.reply = self._assemble_score_reply(
-                            entry.req, k, ts, ti, ok_np, valid, P,
+                        scores, feasible = self._score_incremental(snap, incr)
+                        incr_result = "incr"
+                    except Exception:  # the full rescore below is the documented fallback; the residency is dropped so a torn tensor never serves
+                        logger.exception(
+                            "incremental rescore failed; falling back to a full score_cycle"
                         )
-                        assembled.append(entry)
-                    except Exception as exc:  # routed to the one caller as its RPC error; sibling replies stand
-                        entry.error = exc
-                        n_failed += 1
-                exec_ms = (time.perf_counter_ns() - t_exec) / 1e6
-            except Exception as exc:
-                if launch_span is not None:
-                    launch_span.abort(exc)
-                with self._state_lock:
-                    self.telemetry.abort_cycle("score", exc)
-                raise
-            return lambda: self._score_telemetry(
-                assembled, sid, dispatched, read, exec_ms, n_failed,
-                cand_refresh=refresh_reason, cand_width=C,
-            )
+                        self.state.drop_score_residency()
+                        incr_result = "fallback"
+                else:
+                    incr_result = "fallback"
+            else:
+                incr_result = "full"  # nothing resident to advance
+        if scores is None:
+            if is_sharded(snap):
+                # each shard's block on its own device, kept split for the
+                # residency
+                scores, feasible = score_cycle_sharded(snap, self.cfg)
+            else:
+                scores, feasible = score_cycle(snap, self.cfg)
+        if self._score_incr:
+            self.state.store_score_result(self.cfg, scores, feasible)
+        # mesh-resident tensors are assembled on the lead device
+        scores, feasible = gather(scores), gather(feasible)
+        top_scores, top_idx = masked_top_k(
+            scores, feasible, k=k_launch, hi=score_upper_bound(self.cfg),
+        )
+        ok = torch.gather(feasible, 1, top_idx.long())
 
-        return _readback
+        def extras():
+            # the brownout cache's full tensors: a COPY of the scores,
+            # which the next incremental launch writes in place
+            if P * N <= self._brownout_full_cells:
+                return scores.clone(), feasible
+            return None, None
+
+        return _ScoreRun(
+            top_scores, top_idx, ok, extras, settle=tuple,
+            telemetry=dict(incr_result=incr_result, incr_cols=incr_cols),
+        )
+
+    @launch_section
+    def _score_sparse(self, snap, cres, k_launch) -> _ScoreRun:
+        """The candidate engine, in the launch section: score [P, C]
+        gathered cells instead of [P, N].  Reuses the resident candidate
+        lists ``cres`` when clean, merge-refreshes the dirty entries
+        (reason "dirty"), and rebuilds past the staleness bound ("stale")
+        or with nothing resident ("cold").  Where every pod's feasible
+        fan-out fits C the reply bytes equal the dense engine's; otherwise
+        the readback raises :class:`CandidateOverflow`."""
+        C = int(self.cfg.candidate_width)
+        refresh_reason = None
+        merges = 0
+        if cres is None:
+            # the node mesh, when configured, splits the pipelined build's
+            # counts pass over its blocks
+            cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
+            refresh_reason = "cold"
+        elif cres.dirty_nodes or cres.dirty_pods:
+            if cres.merges >= self.cfg.candidate_max_stale:
+                cand, count = build_candidates(snap, self.cfg, node_mesh=self.mesh)
+                refresh_reason = "stale"
+            else:
+                cand, count = refresh_candidates(
+                    snap, cres.idx, cres.count,
+                    sorted(cres.dirty_nodes), sorted(cres.dirty_pods), self.cfg,
+                )
+                refresh_reason = "dirty"
+                merges = cres.merges + 1
+        else:
+            cand, count = cres.idx, cres.count
+        if refresh_reason is not None:
+            self.state.store_candidates(self.cfg, cand, count, merges)
+        scores, feasible = score_candidates(snap, cand, self.cfg)
+        top_scores, top_idx, top_ok = sparse_top_k(
+            scores, feasible, cand, k=k_launch, hi=score_upper_bound(self.cfg),
+        )
+
+        def settle(extras):
+            try:
+                check_candidate_overflow(extras[0], C)
+            except CandidateOverflow:
+                # a truncating merge may have dropped real candidates:
+                # drop the lists so the next sparse Score rebuilds
+                self.state.drop_candidate_residency()
+                raise
+            # no full scores cached: the cache cannot invent candidate
+            # columns this launch never scored
+            return None, None
+
+        return _ScoreRun(
+            top_scores, top_idx, top_ok, lambda: (count,), settle,
+            span_attrs={"candidate_width": C},
+            telemetry=dict(cand_refresh=refresh_reason, cand_width=C),
+        )
 
     @launch_section
     def _score_incremental(self, snap, res_):

@@ -546,20 +546,19 @@ class SchedulerServer:
 
     def process_doc(self) -> dict:
         """``/debug/process``: this daemon process's boot stamps, journal
-        counters, kernel launch counts (each wrapper's count; the top-k's
-        paths apart, under ``topk_launches``) and loaded
+        counters, the cycle kernels' launch counts (``_build``'s launch
+        table; the top-k's paths apart, under ``topk_launches``) and loaded
         kernel variants — what a harness driving the daemon as a separate
         process reads of it."""
         from koordinator_tpu_torch import _build
-        from koordinator_tpu_torch.solver import dense, topk, wide
 
         journal = self.journal
         return {
             "pid": os.getpid(),
             "boot": dict(self.boot),
             "journal": None if journal is None else journal.stats(),
-            "launches": {"cycle_dense": dense.LAUNCHES, **wide.LAUNCHES},
-            "topk_launches": dict(topk.LAUNCHES),
+            "launches": _build.launch_counts("cycle_dense", "cycle_wide", "wave_cycle"),
+            "topk_launches": _build.launch_counts("topk_kernel", "topk_sort"),
             "loaded_variants": len(_build.loaded_variants()),
             "kernel_demotions": len(kernel_demotions()),
         }

@@ -54,16 +54,6 @@ FLAG_OK = 1  # valid & LoadAware default mask
 FLAG_PROD_OK = 2  # valid & LoadAware prod mask
 FLAG_FRESH = 4  # NodeMetric fresh
 
-# Launches of the cycle kernel in this process; the wrapper adds one where
-# it launches the kernel and nowhere else.
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
 @dataclasses.dataclass(frozen=True)
 class CycleInputs:
     """Everything one cycle reads, in the kernel's layouts."""
@@ -230,15 +220,13 @@ PLAN_KEYS = ("cluster_size", "slice_nodes", "resident", "smem_bytes_per_cta",
              "max_active_clusters_8", "max_active_clusters_16")
 
 
-def read_plan(fn, *args) -> dict:
-    """Call a kernel's plan entry ``fn(*args, out)``: the cluster size, the
-    nodes of a slice, whether the slice is resident in shared memory, the
-    dynamic shared bytes per CTA and ``cudaOccupancyMaxActiveClusters`` at 8
-    and 16 CTAs."""
+def read_plan(source: str, name: str, argtypes, *args) -> dict:
+    """Call a kernel's plan entry ``name(*args, out)`` of ``source``: the
+    cluster size, the nodes of a slice, whether the slice is resident in
+    shared memory, the dynamic shared bytes per CTA and
+    ``cudaOccupancyMaxActiveClusters`` at 8 and 16 CTAs."""
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    err = fn(*args, out)
-    if err != 0:
-        raise RuntimeError(f"cluster plan failed: cudaError {err}")
+    _build.call(source, name, argtypes, *args, out)
     return dict(zip(PLAN_KEYS, out))
 
 
@@ -250,9 +238,9 @@ def uprod_shared(inp: CycleInputs) -> int:
 def cycle_plan(inp: CycleInputs) -> dict:
     """The cluster plan the kernel takes for ``inp`` (``read_plan``)."""
     R, N = inp.alloc.shape
-    fn = _build.entry(KERNEL_SOURCE, "koord_cycle_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(inp.alloc.device):
-        return read_plan(fn, N, R, inp.qrt.shape[0], uprod_shared(inp))
+        return read_plan(KERNEL_SOURCE, "koord_cycle_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                         N, R, inp.qrt.shape[0], uprod_shared(inp))
 
 
 def reciprocal_tables(plan: dict, R: int, N: int, dtype, dev):
@@ -316,14 +304,12 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     ``cycle_dense_reference``.  Raises on a bad input or a refused launch.
     ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
     same source (``phase_cycles``)."""
-    global LAUNCHES
     check_kernel_inputs(inp, "cycle_dense_cuda")
     dev = inp.alloc.device
     P, R = inp.preq.shape
     N = inp.alloc.shape[1]
     i32 = torch.int32
 
-    fn = _build.entry(KERNEL_SOURCE, "koord_cycle_launch", _LAUNCH_ARGTYPES, defines)
     magic, shift = reciprocal_tables(cycle_plan(inp), R, N, torch.int64, dev)
     chosen = torch.empty(P, dtype=i32, device=dev)
     nreq = inp.req0.clone()
@@ -332,7 +318,8 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     fit_wsum, la_wsum = weight_sums(cfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(
+        _build.launch(
+            "cycle_dense", KERNEL_SOURCE, "koord_cycle_launch", _LAUNCH_ARGTYPES,
             P, N, R, inp.qrt.shape[0],
             inp.preq.data_ptr(), inp.psreq.data_ptr(), inp.pest.data_ptr(),
             inp.qid.data_ptr(), inp.pvalid.data_ptr(), inp.pprod.data_ptr(),
@@ -345,11 +332,8 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
             inp.xcomb.data_ptr() if inp.xcomb is not None else None,
             chosen.data_ptr(), nreq.data_ptr(), nest.data_ptr(), quse.data_ptr(),
             None if magic is None else magic.data_ptr(),
-            None if shift is None else shift.data_ptr(), stream,
+            None if shift is None else shift.data_ptr(), stream, defines=defines,
         )
-    if err != 0:
-        raise RuntimeError(f"cycle kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
     return chosen, nreq, nest, quse
 
 

@@ -55,26 +55,14 @@ KERNEL_SOURCE = "solver/score_cuda.cu"
 # the kernel's parameter lists hold this many resources
 MAX_KERNEL_R = 16
 
-# Launches of the kernel on CUDA tensors in this process, and the cells
-# they wrote: ``scores`` the Filter+Score, ``mask`` the mask-only variant.
-LAUNCHES = {"scores": 0, "mask": 0}
-CELLS = {"scores": 0, "mask": 0}
+# the kernel's variants as the launch table counts them (``_build.launch``,
+# with their cells): ``scores`` the Filter+Score, ``mask`` the mask-only one
+VARIANTS = ("scores", "mask")
 
 # Pc, Nc; params, pod_idx, node_idx, 5 pod and 7 node tables; ld; scores,
 # feasible; vec_ok; stream
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [ctypes.c_longlong]
              + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, CELLS):
-        for name in counts:
-            counts[name] = 0
-
-
-def totals() -> tuple:
-    """(launches, cells) of both variants together, this process."""
-    return sum(LAUNCHES.values()), sum(CELLS.values())
 
 
 def _take_nodes(nodes, idx):
@@ -322,20 +310,16 @@ def score_cells(snapshot, cfg, feasible, scores=None, *, pod_idx=None, n_pods=No
     vec_ok = 1 if (n % 2 == 0 and feasible.data_ptr() % 2 == 0
                    and (scores is None or scores.data_ptr() % 16 == 0)) else 0
     dev = feasible.device
-    fn = _build.entry(KERNEL_SOURCE, "koord_score_cells_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(pc, nc, ctypes.addressof(params),
-                 None if pod_idx is None else pod_idx.data_ptr(),
-                 None if node_idx is None else node_idx.data_ptr(),
-                 *(getattr(ops, name).data_ptr() for name in _POD_TABLES + _POD_FLAGS),
-                 *(getattr(ops, name).data_ptr() for name in _NODE_TABLES + _NODE_FLAGS),
-                 n, None if scores is None else scores.data_ptr(), feasible.data_ptr(), vec_ok,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"score cells kernel launch failed: cudaError {err}")
-    variant = "mask" if scores is None else "scores"
-    LAUNCHES[variant] += 1
-    CELLS[variant] += pc * nc
+        _build.launch(
+            "mask" if scores is None else "scores", KERNEL_SOURCE, "koord_score_cells_launch",
+            _ARGTYPES, pc, nc, ctypes.addressof(params),
+            None if pod_idx is None else pod_idx.data_ptr(),
+            None if node_idx is None else node_idx.data_ptr(),
+            *(getattr(ops, name).data_ptr() for name in _POD_TABLES + _POD_FLAGS),
+            *(getattr(ops, name).data_ptr() for name in _NODE_TABLES + _NODE_FLAGS),
+            n, None if scores is None else scores.data_ptr(), feasible.data_ptr(), vec_ok,
+            torch.cuda.current_stream(dev).cuda_stream, cells=pc * nc)
     _add_terms(snapshot, cfg, feasible, scores, pod_idx, pc, node_idx, nc)
 
 

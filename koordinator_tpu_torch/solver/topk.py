@@ -56,20 +56,11 @@ KERNEL_SOURCE = "solver/topk_cuda.cu"
 # a smaller k runs the smallest that holds it
 MAX_KERNEL_K = 32
 
-# Launches of each path on a CUDA tensor in this process: the kernel's, and
-# the plain version's on the card for a k past the kernel's.
-LAUNCHES = {"topk_kernel": 0, "topk_sort": 0}
-
 _ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5  # P, M, k; 4 tensors, stream
 
 # the reference's fast path ranks in float32, exact below 2^24; the port
 # keeps its decision so that the two take the same path
 _F32_EXACT = 1 << 24
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def score_upper_bound(cfg) -> int:
@@ -122,7 +113,8 @@ def masked_top_k(scores, feasible, *, k, hi):
     path = topk_path(scores.device, k)
     if path != "kernel":
         if path == "sort":
-            LAUNCHES["topk_sort"] += 1
+            # the plain version on the card, counted beside the kernel's launches
+            _build.count("topk_sort")
         in_bound = (
             _bounded(hi)
             # koordlint: disable=host-sync-in-jit(the plain version's branch needs the in-bound test on the host; the kernel path has none, ROADMAP Queue C "The top-k branch's host read")
@@ -131,13 +123,10 @@ def masked_top_k(scores, feasible, *, k, hi):
         return _ranked(scores, feasible, k, in_bound)
     p, m, s, f, top_s, top_i = _kernel_operands(scores, feasible, k)
     dev = scores.device
-    fn = _build.entry(KERNEL_SOURCE, "koord_topk_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(p, m, k, s.data_ptr(), f.data_ptr(), top_s.data_ptr(), top_i.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked top-k kernel launch failed: cudaError {err}")
-    LAUNCHES["topk_kernel"] += 1
+        _build.launch("topk_kernel", KERNEL_SOURCE, "koord_topk_launch", _ARGTYPES,
+                      p, m, k, s.data_ptr(), f.data_ptr(), top_s.data_ptr(), top_i.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
     return top_s, top_i
 
 

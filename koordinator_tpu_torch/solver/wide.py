@@ -69,18 +69,9 @@ BLOCK = 128
 # W and M are capped at the TPU kernel's 128 lanes
 MAX_LANES = 128
 
-# Launches of each kernel in this process; a wrapper adds one where it
-# launches its kernel and nowhere else.
-LAUNCHES = {"cycle_wide": 0, "wave_cycle": 0}
-
 # CycleInputs fields that are int64 on the dense path and int32 here
 _NARROWED = ("preq", "psreq", "pest", "alloc", "req0", "usage", "uprod",
              "qrt", "quse0", "weights")
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # The int32 kernels multiply clamped free capacity by MAX_NODE_SCORE (100),
@@ -369,9 +360,9 @@ def wide_plan(inp: CycleInputs) -> dict:
     """The cluster plan the per-pod kernel takes for ``inp``
     (``dense.read_plan``)."""
     R, N = inp.alloc.shape
-    fn = _build.entry(CYCLE_WIDE_SOURCE, "koord_wide_plan", _WIDE_PLAN_ARGTYPES)
     with torch.cuda.device(inp.alloc.device):
-        return dense.read_plan(fn, N, R, inp.qrt.shape[0], dense.uprod_shared(inp))
+        return dense.read_plan(CYCLE_WIDE_SOURCE, "koord_wide_plan", _WIDE_PLAN_ARGTYPES,
+                               N, R, inp.qrt.shape[0], dense.uprod_shared(inp))
 
 
 @devprof.boundary("solver.wide.cycle_wide_cuda")
@@ -383,15 +374,12 @@ def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
     outs, args = _checked_common(inp, cfg, "cycle_wide_cuda")
     dev = inp.alloc.device
     R, N = inp.alloc.shape
-    fn = _build.entry(CYCLE_WIDE_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES, defines)
     magic, shift = dense.reciprocal_tables(wide_plan(inp), R, N, torch.int32, dev)
     with torch.cuda.device(dev):
-        err = fn(*args, None if magic is None else magic.data_ptr(),
-                 None if shift is None else shift.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wide cycle kernel launch failed: cudaError {err}")
-    LAUNCHES["cycle_wide"] += 1
+        _build.launch("cycle_wide", CYCLE_WIDE_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES,
+                      *args, None if magic is None else magic.data_ptr(),
+                      None if shift is None else shift.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream, defines=defines)
     return outs
 
 
@@ -409,9 +397,9 @@ def wave_plan(inp: CycleInputs, wave: int, top_m: int) -> dict:
     (``dense.read_plan``)."""
     R, N = inp.alloc.shape
     W, M = wave_dims(N, wave, top_m)
-    fn = _build.entry(KERNEL_SOURCE, "koord_wave_plan", _WAVE_PLAN_ARGTYPES)
     with torch.cuda.device(inp.alloc.device):
-        return dense.read_plan(fn, N, R, inp.qrt.shape[0], W, M, dense.uprod_shared(inp))
+        return dense.read_plan(KERNEL_SOURCE, "koord_wave_plan", _WAVE_PLAN_ARGTYPES,
+                               N, R, inp.qrt.shape[0], W, M, dense.uprod_shared(inp))
 
 
 @devprof.boundary("solver.wide.wave_cycle_cuda")
@@ -428,15 +416,12 @@ def wave_cycle_cuda(inp: CycleInputs, cfg: CycleConfig, wave: int, top_m: int, d
     W, M = wave_dims(N, wave, top_m)
     magic, shift = dense.reciprocal_tables(wave_plan(inp, wave, top_m), R, N, torch.int32, dev)
     rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = _build.entry(KERNEL_SOURCE, "koord_wave_cycle_launch", _WAVE_ARGTYPES, defines)
     with torch.cuda.device(dev):
-        err = fn(*args, W, M,
-                 None if magic is None else magic.data_ptr(),
-                 None if shift is None else shift.data_ptr(), rounds.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wave cycle kernel launch failed: cudaError {err}")
-    LAUNCHES["wave_cycle"] += 1
+        _build.launch("wave_cycle", KERNEL_SOURCE, "koord_wave_cycle_launch", _WAVE_ARGTYPES,
+                      *args, W, M,
+                      None if magic is None else magic.data_ptr(),
+                      None if shift is None else shift.data_ptr(), rounds.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream, defines=defines)
     return outs + (rounds,)
 
 

@@ -16,11 +16,15 @@ what they must reproduce:
   the wave kernel), at boundary and seeded random operands, and the
   per-pod kernels' scores against ``ops/scoring.py``;
 * the kernel build's digest, which must follow the shared header and the
-  ``-D`` defines, and the sources' launch and instrumentation layout.
+  ``-D`` defines, the sources' launch and instrumentation layout, and the
+  launch table every wrapper counts its launches in (``_build.launch``).
 
 Inputs are made from seeds with numpy.  Every compared value is an
 integer: tolerance 0.
 """
+
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -267,6 +271,77 @@ class TestBuildDigest:
                 assert inside, line
                 timed += 1
         assert timed >= 2
+
+
+class TestLaunchTable:
+    """``_build.launch``: one entry call, its cudaError checked, and one
+    count in the process-wide table under the wrapper's kernel name."""
+
+    @pytest.fixture
+    def entry(self, monkeypatch):
+        calls, rcs = [], []
+
+        def fake_entry(source, name, argtypes, defines=()):
+            def fn(*args):
+                calls.append((source, name, defines, args))
+                return rcs.pop(0) if rcs else 0
+            return fn
+
+        monkeypatch.setattr(_build, "entry", fake_entry)
+        _build.reset_launch_counts()
+        yield calls, rcs
+        _build.reset_launch_counts()
+
+    def test_a_launch_calls_its_entry_and_counts_it_and_its_cells(self, entry):
+        calls, _ = entry
+        _build.launch("scores", "solver/score_cuda.cu", "koord_x", [], 1, 2, cells=6)
+        _build.launch("scores", "solver/score_cuda.cu", "koord_x", [], 3, defines=("D",),
+                      cells=4)
+        _build.launch("mask", "solver/score_cuda.cu", "koord_x", [], 5)
+        assert calls == [("solver/score_cuda.cu", "koord_x", (), (1, 2)),
+                         ("solver/score_cuda.cu", "koord_x", ("D",), (3,)),
+                         ("solver/score_cuda.cu", "koord_x", (), (5,))]
+        assert _build.launch_counts("scores", "scores_cells", "mask", "mask_cells", "none") == {
+            "scores": 2, "scores_cells": 10, "mask": 1, "mask_cells": 0, "none": 0}
+        _build.reset_launch_counts()
+        assert _build.launch_counts("scores", "mask") == {"scores": 0, "mask": 0}
+
+    def test_a_refused_launch_raises_with_its_cuda_error_and_counts_nothing(self, entry):
+        calls, rcs = entry
+        rcs.append(700)
+        with pytest.raises(RuntimeError, match="koord_x failed: cudaError 700"):
+            _build.launch("topk_kernel", "solver/topk_cuda.cu", "koord_x", [], 1)
+        assert len(calls) == 1
+        assert _build.launch_counts("topk_kernel") == {"topk_kernel": 0}
+
+    def test_a_call_checks_its_cuda_error_and_counts_nothing(self, entry):
+        calls, rcs = entry
+        _build.call("solver/cycle_cuda.cu", "koord_plan", [], 7)
+        rcs.append(2)
+        with pytest.raises(RuntimeError, match="koord_plan failed: cudaError 2"):
+            _build.call("solver/cycle_cuda.cu", "koord_plan", [], 8)
+        assert [c[3] for c in calls] == [(7,), (8,)]
+        assert _build.launch_counts("koord_plan") == {"koord_plan": 0}
+        _build.count("topk_sort")
+        assert _build.launch_counts("topk_sort") == {"topk_sort": 1}
+
+    def test_counts_from_many_threads_lose_no_update(self, entry):
+        threads, each = 16, 2_000
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            workers = [threading.Thread(target=lambda: [
+                _build.launch("k", "solver/topk_cuda.cu", "koord_x", [], cells=3)
+                for _ in range(each)]) for _ in range(threads)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=60)
+            assert not any(w.is_alive() for w in workers)
+        finally:
+            sys.setswitchinterval(old)
+        assert _build.launch_counts("k", "k_cells") == {
+            "k": threads * each, "k_cells": 3 * threads * each}
 
 
 def test_cluster_kernels_launch_one_cluster_and_keep_no_one_cta_body():

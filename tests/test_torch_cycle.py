@@ -246,12 +246,12 @@ class TestKernelWrapper:
     def test_cpu_tensors_take_the_plain_version_and_count_nothing(self):
         _, ts = encode_pair(quota_lists(16, 4), quota=True)
         inp = dense.prepare_cycle_inputs(ts)
-        before = dense.LAUNCHES
+        before = _build.launch_counts("cycle_dense")
         out = dense.cycle_dense(inp, tconfig.CycleConfig())
         ref = dense.cycle_dense_reference(inp, tconfig.CycleConfig())
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
-        assert dense.LAUNCHES == before
+        assert _build.launch_counts("cycle_dense") == before
 
     def test_kernel_entry_refuses_cpu_tensors(self):
         _, ts = encode_pair(quota_lists(16, 4), quota=True)

@@ -221,6 +221,32 @@ def test_a_host_only_entry_is_classified_not_flagged():
         """), (), B, SOLVER).run()
 
 
+def test_a_launch_through_the_launch_table_is_a_device_program():
+    """``_build.launch`` takes the entry itself: handed a CUDA stream it
+    launches, and needs a boundary; ``_build.call`` with no stream (a plan
+    query) launches nothing."""
+    Mirror(_launcher("""
+        def _launch(inp):
+            _build.launch("k", "solver/cycle_cuda.cu", "koord_cycle_launch", [],
+                          inp.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+        def plan(inp):
+            return _build.call("solver/cycle_cuda.cu", "koord_cycle_plan", [], inp.shape[0])
+        """), (("unregistered-jit-boundary", 7),), B, SOLVER,
+        contains=(("_launch()", 1),)).run()
+
+
+def test_a_launch_table_define_built_from_a_call_argument_fires():
+    Mirror(_launcher("""
+        @devprof.boundary("solver.fixture._launch")
+        def _launch(inp, wave):
+            _build.launch("k", "solver/cycle_cuda.cu", "koord_cycle_launch", [],
+                          inp.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                          defines=(f"WAVE={wave}",))
+        """), (("retrace-hazard", 9),), ("retrace-hazard",), SOLVER,
+        contains=(("'wave'", 1),)).run()
+
+
 def test_every_reference_case_is_rebound_or_mirrored():
     """The 59 cases of the seven device-discipline classes: the two
     classes without a JAX idiom run on both packages (group ``device``),
@@ -277,9 +303,11 @@ def test_an_item_in_score_cycle_fires():
 
 def test_a_define_built_from_wave_fires():
     got = _fires(f"{PORT}/solver/wide.py",
-                 '"koord_wave_cycle_launch", _WAVE_ARGTYPES, defines)',
-                 '"koord_wave_cycle_launch", _WAVE_ARGTYPES,\n'
-                 '                      tuple(defines) + (f"KOORD_WAVE={wave}",))',
+                 'rounds.data_ptr(),\n'
+                 '                      torch.cuda.current_stream(dev).cuda_stream, defines=defines)',
+                 'rounds.data_ptr(),\n'
+                 '                      torch.cuda.current_stream(dev).cuda_stream,\n'
+                 '                      defines=tuple(defines) + (f"KOORD_WAVE={wave}",))',
                  "retrace-hazard")
     assert len(got) == 1 and "'wave'" in got[0].message
 

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from koordinator_tpu_torch import _build
 from koordinator_tpu_torch.config import AggregatedArgs, CycleConfig, LoadAwareArgs
 from koordinator_tpu_torch.harness import generators as g
 from koordinator_tpu_torch.model import resources as res
@@ -296,7 +297,7 @@ def test_rescore_dirty_equals_a_full_score_cycle(cfg_name):
 def card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: this test runs on the card")
-    score_kernel.reset_launches()
+    _build.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -306,10 +307,11 @@ def assert_kernel_equals_plain(snap, cfg, kwargs, what, seed, mask_only=False):
     scores = None if mask_only else before_s.clone()
     feasible = before_f.clone()
     variant = "mask" if mask_only else "scores"
-    launches = dict(score_kernel.LAUNCHES)
+    launches = _build.launch_counts(*score_kernel.VARIANTS)
     score_kernel.score_cells(snap, cfg, feasible, scores, **kwargs)
     torch.cuda.synchronize()
-    assert score_kernel.LAUNCHES == {**launches, variant: launches[variant] + 1}, what
+    assert _build.launch_counts(*score_kernel.VARIANTS) == \
+        {**launches, variant: launches[variant] + 1}, what
     want_s = None if mask_only else before_s.clone()
     want_f = before_f.clone()
     score_kernel.score_cells_plain(snap, cfg, want_f, want_s, **kwargs)
@@ -349,7 +351,8 @@ def test_the_servicers_padded_grid_and_the_cell_count(card):
     snap = random_snapshot(17, pods=10_000, nodes=5_000, pad_pods=6_384, pad_nodes=3_192,
                            device=card)
     assert_kernel_equals_plain(snap, CycleConfig(), {}, "padded 16384 x 8192", seed=18)
-    assert score_kernel.CELLS == {"scores": 16_384 * 8_192, "mask": 0}
+    assert _build.launch_counts("scores_cells", "mask_cells") == \
+        {"scores_cells": 16_384 * 8_192, "mask_cells": 0}
 
 
 @pytest.mark.card
@@ -358,4 +361,4 @@ def test_rescore_dirty_on_the_card(card, cfg_name):
     check_rescore(random_snapshot(19, pods=300, nodes=700, device=card), CONFIGS[cfg_name],
                   seed=19)
     # the full Score and the two passes, each one launch
-    assert score_kernel.LAUNCHES == {"scores": 4, "mask": 0}
+    assert _build.launch_counts(*score_kernel.VARIANTS) == {"scores": 4, "mask": 0}

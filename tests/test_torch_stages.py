@@ -26,6 +26,7 @@ from koordinator_tpu_torch.bridge.udsserver import (
     METHOD_SYNC,
     RawUdsServer,
 )
+from koordinator_tpu_torch.config import DEFAULT_CYCLE_CONFIG, CycleConfig
 from koordinator_tpu_torch.harness import generators
 from koordinator_tpu_torch.harness.golden import build_sync_request
 from koordinator_tpu_torch.obs import devprof, spans
@@ -71,15 +72,15 @@ def _call(conn, method, req, reply_cls):
     return reply_cls.FromString(body)
 
 
-def _steps(sample, during=None):
+def _steps(sample, during=None, cfg=DEFAULT_CYCLE_CONFIG):
     """A Sync, a flat Score and an Assign, then a warm delta Sync (one
     node's usage moved) and a second Score, over the raw framing to a CPU
-    servicer made with ``devprof_sample=sample``.  ``during(server)`` runs
-    after the server starts and before the first frame.  Returns the
-    ledger's summary rows."""
+    servicer made with ``cfg`` and ``devprof_sample=sample``.
+    ``during(server)`` runs after the server starts and before the first
+    frame.  Returns the ledger's summary rows."""
     nodes, pods, gangs, quotas = generators.quota_colocation(pods=24, nodes=6)
     req, _ = build_sync_request(nodes, pods, gangs, quotas)
-    sv = ScorerServicer(device="cpu", trace_export=False, devprof_sample=sample)
+    sv = ScorerServicer(cfg, device="cpu", trace_export=False, devprof_sample=sample)
     with tempfile.TemporaryDirectory(prefix="kst-") as d:
         server = RawUdsServer(os.path.join(d, "s.sock"), servicer=sv).start()
         try:
@@ -101,6 +102,12 @@ def _steps(sample, during=None):
                 sync2 = _call(conn, METHOD_SYNC, delta, wire.SyncReply)
                 _call(conn, METHOD_SCORE, wire.ScoreRequest(
                     snapshot_id=sync2.snapshot_id, top_k=3, flat=True), wire.ScoreReply)
+            # a frame's rows are recorded after its reply is sent: wait until
+            # the server has seen the client close, past the last frame
+            deadline = time.monotonic() + 30
+            while server._conns and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert not server._conns, "the server kept the closed connection"
         finally:
             server.stop()
             sv.telemetry.close()
@@ -111,8 +118,17 @@ def _stage_rows(rows):
     return {n: r for n, r in rows.items() if r.get("kind") == "stage"}
 
 
-def test_the_ledger_on_gives_every_stage_row_of_each_rpc():
-    stages = _stage_rows(_steps(1))
+# both Score engines: the dense [P, N] one and the candidate one
+@pytest.mark.parametrize("cfg", [DEFAULT_CYCLE_CONFIG, CycleConfig(candidate_width=16)],
+                         ids=["dense", "sparse"])
+def test_the_ledger_on_gives_every_stage_row_of_each_rpc(cfg):
+    rows = _steps(1, cfg=cfg)
+    stages = _stage_rows(rows)
+    # a Score's counter rows beside its stage rows, one count a Score (the
+    # Score kernel runs only on the card: no launch, no cell here)
+    for name in ("score_kernel_launches", "score_kernel_cells"):
+        row = rows[f"server.score.count.{name}"]
+        assert (row["kind"], row["launches"], row["total"]) == ("counter", 2, 0), name
     want = {f"server.{rpc}.{s}" for rpc, names in ROWS.items() for s in names}
     nested = {f"server.{rpc}.{s}" for rpc, inner in NESTED.items() for s in inner}
     assert set(stages) == want | nested | set(DEVICE)

@@ -10,7 +10,8 @@
   ``tests/test_torch_topk_card.py`` holds it bit-equal to the plain version
   on the same rows;
 * the routing: a CPU tensor never reaches the kernel entry, k past
-  ``MAX_KERNEL_K`` counts as ``topk_sort``, ``reset_launches()``.
+  ``MAX_KERNEL_K`` counts as ``topk_sort`` in ``_build``'s launch table,
+  ``reset_launch_counts()``.
 
 Every compared value is an integer: tolerance 0.
 """
@@ -23,12 +24,15 @@ from jax import lax
 
 import koordinator_tpu  # noqa: F401  (x64 on before any jnp array)
 
+from koordinator_tpu_torch import _build
 from koordinator_tpu_torch.config import CycleConfig
 from koordinator_tpu_torch.harness import generators as g
 from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
 from koordinator_tpu_torch.solver import candidates, topk
 
 I64_MIN = np.iinfo(np.int64).min
+# the top-k's paths on the card, as the launch table counts them
+TOPK_PATHS = ("topk_kernel", "topk_sort")
 
 
 def lax_top_k(s, f, k):
@@ -89,14 +93,14 @@ def test_the_plain_version_on_the_sparse_cells():
 def test_a_cpu_tensor_never_reaches_the_kernel_entry(monkeypatch):
     calls = []
     monkeypatch.setattr(topk._build, "entry", lambda *a, **kw: calls.append(a))
-    topk.reset_launches()
+    _build.reset_launch_counts()
     s, f = g.topk_hard_rows(50, seed=1)
     for k in (1, 8, 32, 33, 50):
         assert topk.topk_path(torch.device("cpu"), k) == "plain"
         got = topk.masked_top_k(torch.from_numpy(s), torch.from_numpy(f), k=k, hi=7)
         assert_same(got, lax_top_k(s, f, k), f"k={k}")
     assert calls == []
-    assert topk.LAUNCHES == {"topk_kernel": 0, "topk_sort": 0}
+    assert _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": 0, "topk_sort": 0}
 
 
 def test_the_path_is_chosen_from_the_device_and_k():
@@ -117,12 +121,12 @@ def test_a_k_past_the_kernel_counts_as_sort_and_runs_the_plain_version(monkeypat
     monkeypatch.setattr(topk, "topk_path", lambda device, k: "sort")
     monkeypatch.setattr(topk, "_ranked",
                         lambda *a: plain.append(a[2]) or real_plain(*a))
-    topk.reset_launches()
+    _build.reset_launch_counts()
     s, f = g.topk_hard_rows(40, seed=4)
     got = topk.masked_top_k(torch.from_numpy(s), torch.from_numpy(f), k=40, hi=None)
     assert_same(got, lax_top_k(s, f, 40), "k=40")
     assert plain == [40]
-    assert topk.LAUNCHES == {"topk_kernel": 0, "topk_sort": 1}
-    topk.LAUNCHES["topk_kernel"] = 3
-    topk.reset_launches()
-    assert topk.LAUNCHES == {"topk_kernel": 0, "topk_sort": 0}
+    assert _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": 0, "topk_sort": 1}
+    _build.count("topk_kernel")
+    _build.reset_launch_counts()
+    assert _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": 0, "topk_sort": 0}

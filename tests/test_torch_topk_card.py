@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from koordinator_tpu_torch import _build
 from koordinator_tpu_torch.config import CycleConfig
 from koordinator_tpu_torch.harness import generators as g
 from koordinator_tpu_torch.model.snapshot import snapshot_from_numpy
@@ -21,13 +22,15 @@ pytestmark = pytest.mark.card
 
 # the benchmark's Score: 10,000 pending pods x 5,000 nodes
 CELL = (10_000, 5_000)
+# the top-k's paths on the card, as the launch table counts them
+TOPK_PATHS = ("topk_kernel", "topk_sort")
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: this test runs on the card")
-    topk.reset_launches()
+    _build.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -44,10 +47,10 @@ def on(dev, s, f):
 
 def assert_kernel_equals_plain(s, f, k, what, hi=None):
     """One kernel launch against the plain version on the same tensors."""
-    before = topk.LAUNCHES["topk_kernel"]
+    before = _build.launch_counts("topk_kernel")["topk_kernel"]
     got = topk.masked_top_k(s, f, k=k, hi=hi)
     torch.cuda.synchronize()
-    assert topk.LAUNCHES["topk_kernel"] == before + 1, what
+    assert _build.launch_counts("topk_kernel")["topk_kernel"] == before + 1, what
     want = topk.masked_top_k_plain(s, f, k=k, hi=hi)
     assert got[0].dtype == torch.int64 and got[1].dtype == torch.int32, what
     assert got[0].shape == want[0].shape, what
@@ -125,9 +128,9 @@ def test_one_score_of_the_servicer(card):
     sv = ScorerServicer(device="cuda")
     try:
         sync = sv.sync(build_sync_request(nodes, pods, gangs, quotas)[0])
-        before = topk.LAUNCHES["topk_kernel"]
+        before = _build.launch_counts("topk_kernel")["topk_kernel"]
         reply = sv.score(wire.ScoreRequest(snapshot_id=sync.snapshot_id, top_k=8, flat=True))
-        assert topk.LAUNCHES == {"topk_kernel": before + 1, "topk_sort": 0}
+        assert _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": before + 1, "topk_sort": 0}
         snap = sv.state.snapshot()
         scores, feasible = score_cycle(snap, sv.cfg)
         ts, ti = topk.masked_top_k_plain(scores, feasible, k=8, hi=score_upper_bound(sv.cfg))
@@ -148,7 +151,7 @@ def test_a_refused_launch_raises_and_nothing_falls_back(card, monkeypatch):
     monkeypatch.setattr(topk, "_ranked", lambda *a: plain.append(1))
     with pytest.raises(RuntimeError, match="cudaError 1"):
         topk.masked_top_k(s, f, k=8, hi=None)
-    assert plain == [] and topk.LAUNCHES == {"topk_kernel": 0, "topk_sort": 0}
+    assert plain == [] and _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": 0, "topk_sort": 0}
 
 
 def test_a_k_past_the_kernel_takes_the_sort_path(card):
@@ -157,7 +160,7 @@ def test_a_k_past_the_kernel_takes_the_sort_path(card):
     want = topk.masked_top_k_host(s.cpu().numpy(), f.cpu().numpy(), 33)
     assert np.array_equal(got[0].cpu().numpy(), want[0])
     assert np.array_equal(got[1].cpu().numpy(), want[1])
-    assert topk.LAUNCHES == {"topk_kernel": 0, "topk_sort": 1}
+    assert _build.launch_counts(*TOPK_PATHS) == {"topk_kernel": 0, "topk_sort": 1}
 
 
 def test_the_entry_refuses_what_the_kernel_does_not_take(card):

@@ -693,7 +693,7 @@ class TestWideWrappers:
     def test_cpu_tensors_take_the_plain_versions_and_count_nothing(self):
         _, ts = encode_pair(quota_lists(16, 4), quota=True)
         inp = wide.prepare_wide_inputs(ts)
-        before = dict(wide.LAUNCHES)
+        before = _build.launch_counts("cycle_wide", "wave_cycle")
         for cfg in (tconfig.CycleConfig(), tconfig.CycleConfig(wave=8, top_m=2)):
             out = wide.run_wide(inp, cfg)
             if cfg.wave > 1:
@@ -702,7 +702,7 @@ class TestWideWrappers:
                 ref = wide.cycle_wide_reference(inp, cfg) + (None,)
             for a, b in zip(out, ref):
                 assert (a is None and b is None) or torch.equal(a, b)
-        assert wide.LAUNCHES == before
+        assert _build.launch_counts("cycle_wide", "wave_cycle") == before
 
     def test_kernel_entries_refuse_cpu_tensors(self):
         _, ts = encode_pair(quota_lists(16, 4), quota=True)
