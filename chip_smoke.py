@@ -38,12 +38,18 @@ Phases (any failure raises and exits non-zero, printing no result):
    up to 2^31 (and the wave request on them, which K1 also takes); the
    ``headline``, ``wave_headline`` and ``dense_headline`` lines carry each
    cluster plan (cluster size, shared bytes per CTA, occupancy at 8 and 16
-   CTAs), K2's and K1's microseconds per pod step in Filter/Score,
-   staging, barrier and merge, and K3's phase-A, merge and phase-B
+   CTAs), K2's and K1's microseconds per full pod step in Filter/Score,
+   staging, barrier and merge, their ``run_pods`` and microseconds per
+   pod on the run path (a pod whose rows equal the previous valid pod's,
+   in a run of three or more), and K3's phase-A, merge and phase-B
    microseconds per round, from the instrumented builds of the same
    sources; the ``headline`` line also carries K1's kernel time on the
    same default inputs, which K2 must not exceed for the ladder's K2-first
-   order to hold;
+   order to hold; then the ``runs`` line: K2 (``run_cycle``) and K1
+   (``greedy_assign_dense``) at 10,000 ``pod-default`` pods x 5,000
+   ``node-default`` nodes, one run, each exact against ``greedy_assign``
+   with its ``run_pods`` equal to the plain count, its kernel timed alone
+   and split the same way (``--only runs`` runs it after the headline);
 5. the reference anchors: the digest of the per-pod (K2 and K1) and of the
    wave cycle on a fixed mid-size snapshot against ``harness/anchor.py``'s
    constant, and the wave cycle's rounds against the reference kernel's,
@@ -601,27 +607,91 @@ def pod_split(kernel, counters, inp, cfg):
     of its source (``kernel``, its wrapper; ``counters``, its counter
     read): rank 0's clock64 cycles of quota and Filter/Score, of staging
     the next pod, of the warp reduction and cluster barrier, and of the
-    merge and Reserve split the run's CUDA-event time over the valid
-    pods."""
+    merge and Reserve split the run's CUDA-event time over the pods that
+    took the full step, and the cycles of the runs over the pods placed on
+    the run path (``run_pods``, the kernel's own count; None where there
+    were none)."""
     import torch
 
     from koordinator_tpu_torch import _build
 
+    runs = torch.zeros(1, dtype=torch.int32, device=inp.alloc.device)
+
     def run():
-        return kernel(inp, cfg, defines=_build.PHASE_CLOCK)
+        return kernel(inp, cfg, defines=_build.PHASE_CLOCK, run_pods=runs)
 
     run()
     torch.cuda.synchronize()
     counters()  # drop the warm-up's counts
     ms, _ = timed_once(run)
     parts = counters()
-    pods = int((inp.pvalid != 0).sum())
+    run_pods = int(runs)
+    full = int((inp.pvalid != 0).sum()) - run_pods
     total = max(sum(parts), 1)
     us = ms * 1e3
     names = ("score_us_per_pod", "stage_us_per_pod", "barrier_us_per_pod",
              "merge_reserve_us_per_pod")
-    out = {name: us * v / total / pods for name, v in zip(names, parts)}
-    return {"instrumented_kernel_ms": ms, **out, "rank0_cycles_per_us": total / us}
+    out = {name: us * v / total / max(full, 1) for name, v in zip(names, parts)}
+    return {"instrumented_kernel_ms": ms, "full_steps": full, "run_pods": run_pods, **out,
+            "run_us_per_pod": us * parts[4] / total / run_pods if run_pods else None,
+            "rank0_cycles_per_us": total / us}
+
+
+def scheduling_basic_snapshot(dev, nodes=5_000, pods=10_000):
+    """scheduler_perf's ``SchedulingBasic``: ``node-default`` nodes (4 cpu,
+    32Gi, 110 pods) and a queue of ``pod-default`` pods (100m, 500Mi), one
+    run of identical rows."""
+    from koordinator_tpu_torch.model import encode_snapshot
+
+    node_list = [{"name": f"node-{i}",
+                  "allocatable": {"cpu": "4000m", "memory": 32 << 30, "pods": 110}}
+                 for i in range(nodes)]
+    pod_list = [{"name": f"pod-{p}", "requests": {"cpu": "100m", "memory": 500 << 20}}
+                for p in range(pods)]
+    return encode_snapshot(node_list, pod_list, [], [], device=dev)
+
+
+def runs_phase(card, dev):
+    """The ``runs`` line: K2 and K1 at 10,000 pods x 5,000 nodes on an
+    all-``pod-default`` queue, which the kernels place on their run path
+    but for the first pod: each through its entry (K2 ``run_cycle``, K1
+    ``greedy_assign_dense``) exact against ``greedy_assign``, its own
+    ``run_pods`` equal to the plain count, its kernel timed alone (median
+    of 7, CUDA events) and split by the instrumented build."""
+    import torch
+
+    from koordinator_tpu_torch.config import CycleConfig
+    from koordinator_tpu_torch.solver import dense, greedy_assign, kernel_demotions, run_cycle, wide
+
+    snap = scheduling_basic_snapshot(dev)
+    cfg = CycleConfig()
+    oracle = greedy_assign(snap, cfg)
+    torch.cuda.synchronize()
+    line = {"snapshot": "SchedulingBasic 10000 pod-default pods x 5000 node-default nodes",
+            "assigned": int((oracle.assignment >= 0).sum()), "card": card,
+            "plain_run_pods": int(oracle.run_pods)}
+    for name, entry, kernel, counters, prepare in (
+        ("K2", lambda: run_cycle(snap, cfg), wide.cycle_wide_cuda, wide.wide_phase_cycles,
+         wide.prepare_wide_inputs),
+        ("K1", lambda: dense.greedy_assign_dense(snap, cfg), dense.cycle_dense_cuda,
+         dense.phase_cycles, dense.prepare_cycle_inputs),
+    ):
+        reset_counts()
+        got = entry()
+        torch.cuda.synchronize()
+        launched = kernel_counts()
+        if got.path != "cuda" or kernel_demotions():
+            raise AssertionError(f"runs {name}: path {got.path}, demotions {kernel_demotions()}")
+        assert_same(f"runs {name}", got, oracle)
+        if int(got.run_pods) != int(oracle.run_pods):
+            raise AssertionError(f"runs {name}: run_pods {int(got.run_pods)} != plain "
+                                 f"{int(oracle.run_pods)}")
+        inp = prepare(snap, cfg)
+        ms, _ = cuda_time(lambda: kernel(inp, cfg))
+        line[name] = {"launches": launched, "kernel_ms": ms, "run_pods": int(got.run_pods),
+                      "pod_split": pod_split(kernel, counters, inp, cfg),
+                      "parity": "exact vs greedy_assign"}
+    return line
 
 
 def _io_bytes(inp) -> int:
@@ -4533,11 +4603,11 @@ def mesh_phase(card, dev, snap, lists, headline, wave_rounds):
     return line, launches
 
 
-ONLY_LINES = ("trace", "failover", "coldstart", "mesh", "topk", "score")
+ONLY_LINES = ("trace", "failover", "coldstart", "mesh", "topk", "score", "runs")
 
 
 def only_lines(names) -> int:
-    """``python3 chip_smoke.py --only trace,failover,coldstart,mesh,topk,score``: those
+    """``python3 chip_smoke.py --only trace,failover,coldstart,mesh,topk,score,runs``: those
     lines alone, after the card line, the kernels' builds and phase 4's
     headline ``run_cycle(snap)`` (exact against ``greedy_assign``), which
     the ``failover`` line holds its recovered daemons to and the ``mesh``
@@ -4580,6 +4650,8 @@ def only_lines(names) -> int:
             line = topk_phase(card, torch.device("cuda"))
         elif name == "score":
             line = score_kernel_phase(card, torch.device("cuda"))
+        elif name == "runs":
+            line = runs_phase(card, torch.device("cuda"))
         else:
             line, _ = coldstart_phase(card, torch.device("cuda"))
         print(json.dumps({name: line}))
@@ -4781,6 +4853,7 @@ def main() -> int:
         "cycle_ms_host_wall": cycle_wall, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound, "k1_kernel_ms_same_inputs": k1_no_extras_ms,
         "cluster": wide.wide_plan(inp_2),
+        "run_pods": int(result.run_pods),
         "pod_split": pod_split(wide.cycle_wide_cuda, wide.wide_phase_cycles, inp_2, cfg),
         "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
     }}))
@@ -4835,9 +4908,11 @@ def main() -> int:
         "cycle_ms_host_wall": x_wall, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound, "kernel_ms_without_extras": k1_no_extras_ms,
         "cluster": dense.cycle_plan(inp_x),
+        "run_pods": int(result_x.run_pods),
         "pod_split": pod_split(dense.cycle_dense_cuda, dense.phase_cycles, inp_x, cfg),
         "timed_runs": TIMED_RUNS, "parity": "exact vs greedy_assign",
     }}))
+    print(json.dumps({"runs": runs_phase(card, dev)}))
     phase_done("4_headline")
 
     # phase 5

@@ -170,17 +170,20 @@ def read_back(*tensors):
 
 # an Assign's counters: its cycle record's notes and, with the launch
 # ledger on, its rows ``server.assign.count.<name>``
-ASSIGN_COUNTERS = ("placed", "unschedulable", "wait_gang", "gangs_held", "quota_bound")
+ASSIGN_COUNTERS = ("placed", "unschedulable", "wait_gang", "gangs_held", "quota_bound",
+                   "run_pods")
 
 
-def _note_counts(scope, status: np.ndarray, held_bound) -> None:
+def _note_counts(scope, status: np.ndarray, held_bound, run_pods: int) -> None:
     """Count one Assign's outcome: its pending pods by status (the host
-    copy the reply is built from) and ``(gangs_held, quota_bound)`` from
-    the device's reduction (``solver/greedy.py gang_quota_counts``)."""
+    copy the reply is built from), ``(gangs_held, quota_bound)`` from the
+    device's reduction (``solver/greedy.py gang_quota_counts``) and the
+    pods the cycle kernel placed on its run path (``CycleResult.run_pods``,
+    read back with them; 0 on a route without one)."""
     by_status = np.bincount(status, minlength=3)
     counts = dict(zip(ASSIGN_COUNTERS, (
         int(by_status[STATUS_ASSIGNED]), int(by_status[STATUS_UNSCHEDULABLE]),
-        int(by_status[STATUS_WAIT_GANG])) + tuple(held_bound)))
+        int(by_status[STATUS_WAIT_GANG])) + tuple(held_bound) + (run_pods,)))
     for name, value in counts.items():
         scope.note(name, value)
         devprof.record_count(f"server.assign.count.{name}", value)
@@ -1559,9 +1562,9 @@ class ScorerServicer:
                 # assignment, status, validity, rounds and the counts in
                 # one transfer
                 with scope.span("readback"), stage("readback"):
-                    assignment, status, valid, got_rounds, got_counts = read_back(
+                    assignment, status, valid, got_rounds, got_counts, got_runs = read_back(
                         result.assignment, result.status, local(snap.pods.valid),
-                        rounds, held_bound,
+                        rounds, held_bound, result.run_pods,
                     )
                 if dev_span is not None:
                     dev_span.read()
@@ -1571,12 +1574,13 @@ class ScorerServicer:
                     eff_wave,
                     assignment, status, valid.astype(bool),
                     (0, 0) if got_counts is None else tuple(int(v) for v in got_counts),
+                    0 if got_runs is None else int(np.asarray(got_runs).reshape(-1)[0]),
                 )
 
             return _readback
 
         try:
-            result, rounds, eff_wave, assignment, status, valid, held_bound = (
+            result, rounds, eff_wave, assignment, status, valid, held_bound, run_pods = (
                 self.dispatch.run_pipelined(launch)
             )
         except SnapshotNotResident as exc:
@@ -1620,7 +1624,7 @@ class ScorerServicer:
                 memo.done.set()
             self.last_cycle = result
             self.telemetry.metrics.count_assign_memo("miss")
-            _note_counts(scope, status[valid], held_bound)
+            _note_counts(scope, status[valid], held_bound, run_pods)
             self.telemetry.commit_scope(
                 scope, ms,
                 path=result.path or "unknown",

@@ -45,8 +45,8 @@ synchronise included.  With the ledger off a stage records nothing.
 
 Beside them the ledger keeps **counter rows** (``kind: "counter"``),
 ``server.<rpc>.count.<name>``: what one RPC counted (the Assign's
-``placed``, ``unschedulable``, ``wait_gang``, ``gangs_held`` and
-``quota_bound``; the Score's ``score_kernel_launches`` and
+``placed``, ``unschedulable``, ``wait_gang``, ``gangs_held``,
+``quota_bound`` and ``run_pods``; the Score's ``score_kernel_launches`` and
 ``score_kernel_cells``, ``bridge/server.py``).  Each RPC adds one occurrence:
 ``launches`` and ``sampled`` count the RPCs, ``total`` sums the counts,
 and ``device_us_total`` holds the same sum, so that a reader of the

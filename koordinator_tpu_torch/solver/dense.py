@@ -46,6 +46,7 @@ from koordinator_tpu_torch.solver.greedy import (
     finish_cycle,
     node_filter_inputs,
     queue_order,
+    run_pod_count,
 )
 
 KERNEL_SOURCE = "solver/cycle_cuda.cu"
@@ -214,7 +215,8 @@ _LAUNCH_ARGTYPES = (
     + [ctypes.c_void_p] * 13  # preq .. weights
     + [ctypes.c_int64] * 4  # fit_wsum, la_wsum, fit_pw, la_pw
     + [ctypes.c_int] * 3  # most_allocated, enable_fit, enable_la
-    + [ctypes.c_void_p] * 8  # xcomb, chosen, nreq, nest, quse, magic, shift, stream
+    + [ctypes.c_void_p] * 9  # xcomb, chosen, nreq, nest, quse, magic, shift, run_pods, run_scratch
+    + [ctypes.c_size_t, ctypes.c_void_p]  # run_scratch's bytes, stream
 )
 PLAN_KEYS = ("cluster_size", "slice_nodes", "resident", "smem_bytes_per_cta",
              "max_active_clusters_8", "max_active_clusters_16")
@@ -251,6 +253,28 @@ def reciprocal_tables(plan: dict, R: int, N: int, dtype, dev):
         return None, None
     return (torch.empty((R, N), dtype=dtype, device=dev),
             torch.empty((R, N), dtype=torch.uint8, device=dev))
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def run_scratch(plan: dict, N: int, dtype, dev) -> Optional[torch.Tensor]:
+    """The device scratch of the per-pod kernels' run path when the node
+    slices are not resident (``cycle_cuda.cu carve_run``): a leaf of
+    ``dtype`` and a feasibility byte per node, then a 16-byte entry per
+    group of 32 nodes of a slice, for 16 CTAs at most.  None when the
+    slices are resident; the launcher refuses a scratch that is short."""
+    if plan["resident"]:
+        return None
+    groups = 16 * -(-plan["slice_nodes"] // 32)
+    nbytes = _align16(N * torch.iinfo(dtype).bits // 8) + _align16(N) + 16 * groups
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def scratch_args(scratch: Optional[torch.Tensor]) -> tuple:
+    """The launcher's (run_scratch, run_scratch_bytes) arguments."""
+    return (None, 0) if scratch is None else (scratch.data_ptr(), scratch.numel())
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -292,25 +316,30 @@ def check_kernel_inputs(inp: CycleInputs, what: str, value_dtype=torch.int64) ->
 
 def phase_cycles():
     """The instrumented build's clock64 counters, summed since the last
-    read (reading resets them): rank 0's pod-step cycles of quota and
-    Filter/Score, of staging the next pod, of the reduction and barrier, and
-    of the merge and Reserve."""
-    return _build.read_counters(KERNEL_SOURCE, "koord_cycle_phase_cycles", 4)
+    read (reading resets them): rank 0's cycles, over the full pod steps,
+    of quota and Filter/Score, of staging the next pod, of the reduction
+    and barrier, and of the merge and Reserve; then of the runs, from
+    their first pod's merge to the staging of the pod after them."""
+    return _build.read_counters(KERNEL_SOURCE, "koord_cycle_phase_cycles", 5)
 
 
 @devprof.boundary("solver.dense.cycle_dense_cuda")
-def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
+def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=(),
+                     run_pods: Optional[torch.Tensor] = None):
     """Launch the CUDA cycle kernel on the current stream; same outputs as
     ``cycle_dense_reference``.  Raises on a bad input or a refused launch.
     ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
-    same source (``phase_cycles``)."""
+    same source (``phase_cycles``).  ``run_pods``, an i32[1] on the
+    device, receives the pods placed on the run path (``run_pod_count``)."""
     check_kernel_inputs(inp, "cycle_dense_cuda")
     dev = inp.alloc.device
     P, R = inp.preq.shape
     N = inp.alloc.shape[1]
     i32 = torch.int32
 
-    magic, shift = reciprocal_tables(cycle_plan(inp), R, N, torch.int64, dev)
+    plan = cycle_plan(inp)
+    magic, shift = reciprocal_tables(plan, R, N, torch.int64, dev)
+    scratch = run_scratch(plan, N, torch.int64, dev)
     chosen = torch.empty(P, dtype=i32, device=dev)
     nreq = inp.req0.clone()
     nest = torch.zeros_like(inp.req0)
@@ -332,17 +361,28 @@ def cycle_dense_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
             inp.xcomb.data_ptr() if inp.xcomb is not None else None,
             chosen.data_ptr(), nreq.data_ptr(), nest.data_ptr(), quse.data_ptr(),
             None if magic is None else magic.data_ptr(),
-            None if shift is None else shift.data_ptr(), stream, defines=defines,
+            None if shift is None else shift.data_ptr(),
+            None if run_pods is None else run_pods.data_ptr(), *scratch_args(scratch),
+            stream, defines=defines,
         )
     return chosen, nreq, nest, quse
 
 
-def cycle_dense(inp: CycleInputs, cfg: CycleConfig):
+def inputs_run_pods(inp: CycleInputs) -> torch.Tensor:
+    """``run_pod_count`` of a cycle's inputs: what the kernel reports."""
+    return run_pod_count(inp.preq, inp.psreq, inp.pest, inp.pprod, inp.pvalid,
+                         inp.xcomb is not None)
+
+
+def cycle_dense(inp: CycleInputs, cfg: CycleConfig, run_pods: Optional[torch.Tensor] = None):
     """The cycle on ``inp``'s device: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors (which counts ``run_pods`` from the
+    inputs)."""
     if inp.alloc.device.type == "cpu":
+        if run_pods is not None:
+            run_pods.copy_(inputs_run_pods(inp))
         return cycle_dense_reference(inp, cfg)
-    return cycle_dense_cuda(inp, cfg)
+    return cycle_dense_cuda(inp, cfg, run_pods=run_pods)
 
 
 def greedy_assign_dense(
@@ -358,10 +398,11 @@ def greedy_assign_dense(
     with stage("prepare"):
         inp = prepare_cycle_inputs(snapshot, cfg, extra_mask, extra_scores)
     with stage("kernel"):
-        chosen, nreq, nest, quse = cycle_dense(inp, cfg)
+        run_pods = torch.zeros(1, dtype=torch.int32, device=inp.alloc.device)
+        chosen, nreq, nest, quse = cycle_dense(inp, cfg, run_pods)
     path = "scan" if inp.alloc.device.type == "cpu" else "cuda"
     with stage("finish"):
         return finish_cycle(
             snapshot, inp.order, chosen, nreq.t().contiguous(),
-            nest.t().contiguous(), quse, path=path,
+            nest.t().contiguous(), quse, path=path, run_pods=run_pods,
         )

@@ -75,6 +75,9 @@ class CycleResult:
     # which code path produced the result: "cuda" (a cycle kernel), "scan"
     # (an eager per-pod loop in plain PyTorch) or "wave" (``wave_assign``)
     path: Optional[str] = None
+    # i32[1]: the pods the per-pod kernels place on their run path
+    # (``run_pod_count``); None for a wave-batched or a sharded cycle
+    run_pods: Optional[torch.Tensor] = None
 
 
 def queue_order(priority: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -163,6 +166,33 @@ def step_feasible_scores(
     return feasible, total
 
 
+def run_pod_count(preq, psreq, pest, pprod, pvalid, extras: bool) -> torch.Tensor:
+    """i32[1] on the rows' device: the pods of a queue (rows in queue
+    order) that the per-pod cycle kernels place on their run path.  A valid
+    pod joins the previous valid pod when its requests, score requests,
+    estimates and prod bit equal that pod's, in a cycle with no extra
+    Filter or Score (``extras`` false); invalid slots between two pods do
+    not end a run.  A run of three or more pods places every pod after its
+    first on the run path; a pair of equal pods takes two full steps.  So a
+    pod counts when it joins and the pod before it or the pod after it
+    joins too.  No host read."""
+    dev = pvalid.device
+    P = pvalid.shape[0]
+    if extras or P == 0:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    valid = pvalid.bool()
+    slot = torch.arange(P, device=dev)
+    last = torch.where(valid, slot, -1).cummax(0).values  # last valid at or before
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])  # last valid before
+    nxt = torch.where(valid, slot, P).flip(0).cummin(0).values.flip(0)  # first valid at or after
+    nxt = torch.cat([nxt[1:], nxt.new_full((1,), P)])  # first valid after
+    rows = torch.cat([preq.long(), psreq.long(), pest.long(), pprod.long()[:, None]], 1)
+    joins = (rows == rows[prev.clamp(min=0)]).all(1) & valid & (prev >= 0)
+    padded = torch.cat([joins, joins.new_zeros(1)])  # slot P: no pod
+    paired = padded[prev.clamp(min=0)] & (prev >= 0) | padded[nxt]
+    return (joins & paired).sum().to(torch.int32).reshape(1)
+
+
 def finish_cycle(
     snapshot: ClusterSnapshot,
     order: torch.Tensor,  # i64[P] queue order
@@ -172,6 +202,7 @@ def finish_cycle(
     quota_used: torch.Tensor,
     path: str,
     rounds: Optional[torch.Tensor] = None,
+    run_pods: Optional[torch.Tensor] = None,
 ) -> CycleResult:
     """Scatter the queue-order choices back to pod order and apply the
     gang all-or-nothing status."""
@@ -200,6 +231,7 @@ def finish_cycle(
         quota_used=quota_used,
         rounds=rounds,
         path=path,
+        run_pods=run_pods,
     )
 
 
@@ -270,10 +302,14 @@ def greedy_assign(
         chosen_in_order, node_requested, node_estimated, quota_used = scan(
             snapshot, cfg, order.tolist(), score_requests, nf, is_prod, quota_id, valid,
             extra_mask, extra_scores)
+        pprod = (pods.priority_class == int(PriorityClass.PROD)) & nf.prod_sensitive
+        run_pods = run_pod_count(
+            pods.requests[order], score_requests[order], pods.estimated[order], pprod[order],
+            pods.valid[order], extra_mask is not None or extra_scores is not None)
     with stage("finish"):
         return finish_cycle(
             snapshot, order, chosen_in_order, node_requested, node_estimated,
-            quota_used, path="scan",
+            quota_used, path="scan", run_pods=run_pods,
         )
 
 

@@ -317,7 +317,11 @@ _COMMON_ARGTYPES = (
     + [ctypes.c_int] * 3  # most_allocated, enable_fit, enable_la
     + [ctypes.c_void_p] * 5  # xcomb, chosen, nreq, nest, quse
 )
-_WIDE_ARGTYPES = _COMMON_ARGTYPES + [ctypes.c_void_p] * 3  # magic, shift, stream
+_WIDE_ARGTYPES = (
+    _COMMON_ARGTYPES
+    + [ctypes.c_void_p] * 4  # magic, shift, run_pods, run_scratch
+    + [ctypes.c_size_t, ctypes.c_void_p]  # run_scratch's bytes, stream
+)
 _WAVE_ARGTYPES = (
     _COMMON_ARGTYPES
     + [ctypes.c_int] * 2  # wave, top_m
@@ -366,19 +370,26 @@ def wide_plan(inp: CycleInputs) -> dict:
 
 
 @devprof.boundary("solver.wide.cycle_wide_cuda")
-def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
+def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=(),
+                    run_pods: Optional[torch.Tensor] = None):
     """Launch the per-pod wide kernel on the current stream; same outputs
     as ``cycle_wide_reference``.  Raises on a bad input or a refused launch.
     ``defines=_build.PHASE_CLOCK`` launches the instrumented build of the
-    same source (``wide_phase_cycles``)."""
+    same source (``wide_phase_cycles``).  ``run_pods``, an i32[1] on the
+    device, receives the pods placed on the run path
+    (``dense.inputs_run_pods``)."""
     outs, args = _checked_common(inp, cfg, "cycle_wide_cuda")
     dev = inp.alloc.device
     R, N = inp.alloc.shape
-    magic, shift = dense.reciprocal_tables(wide_plan(inp), R, N, torch.int32, dev)
+    plan = wide_plan(inp)
+    magic, shift = dense.reciprocal_tables(plan, R, N, torch.int32, dev)
+    scratch = dense.run_scratch(plan, N, torch.int32, dev)
     with torch.cuda.device(dev):
         _build.launch("cycle_wide", CYCLE_WIDE_SOURCE, "koord_wide_cycle_launch", _WIDE_ARGTYPES,
                       *args, None if magic is None else magic.data_ptr(),
                       None if shift is None else shift.data_ptr(),
+                      None if run_pods is None else run_pods.data_ptr(),
+                      *dense.scratch_args(scratch),
                       torch.cuda.current_stream(dev).cuda_stream, defines=defines)
     return outs
 
@@ -386,10 +397,11 @@ def cycle_wide_cuda(inp: CycleInputs, cfg: CycleConfig, defines=()):
 def wide_phase_cycles():
     """The instrumented build's clock64 counters of the per-pod kernel,
     summed since the last read (reading resets them), as
-    ``dense.phase_cycles`` gives the dense kernel's: rank 0's pod-step
-    cycles of quota and Filter/Score, of staging the next pod, of the
-    reduction and barrier, and of the merge and Reserve."""
-    return _build.read_counters(CYCLE_WIDE_SOURCE, "koord_wide_phase_cycles", 4)
+    ``dense.phase_cycles`` gives the dense kernel's: rank 0's cycles, over
+    the full pod steps, of quota and Filter/Score, of staging the next pod,
+    of the reduction and barrier, and of the merge and Reserve; then of the
+    runs."""
+    return _build.read_counters(CYCLE_WIDE_SOURCE, "koord_wide_phase_cycles", 5)
 
 
 def wave_plan(inp: CycleInputs, wave: int, top_m: int) -> dict:
@@ -432,25 +444,32 @@ def wave_phase_cycles():
     return _build.read_counters(KERNEL_SOURCE, "koord_wave_phase_cycles", 5)
 
 
-def run_wide(inp: CycleInputs, cfg: CycleConfig):
+def run_wide(inp: CycleInputs, cfg: CycleConfig, run_pods: Optional[torch.Tensor] = None):
     """The cycle on ``inp``'s device — the wave cycle when ``cfg.wave > 1``,
     else the per-pod one: the kernel on CUDA tensors, the plain version on
-    CPU tensors.  Returns (chosen, nreq, nest, quse, rounds or None)."""
+    CPU tensors.  Returns (chosen, nreq, nest, quse, rounds or None).  The
+    per-pod route writes its run pods into ``run_pods`` when given (the
+    plain version counts them from the inputs); the wave route has none."""
     cpu = inp.alloc.device.type == "cpu"
     if cfg.wave > 1:
         fn = wave_cycle_reference if cpu else wave_cycle_cuda
         return fn(inp, cfg, cfg.wave, cfg.top_m)
-    return (cycle_wide_reference if cpu else cycle_wide_cuda)(inp, cfg) + (None,)
+    if cpu:
+        if run_pods is not None:
+            run_pods.copy_(dense.inputs_run_pods(inp))
+        return cycle_wide_reference(inp, cfg) + (None,)
+    return cycle_wide_cuda(inp, cfg, run_pods=run_pods) + (None,)
 
 
-def wide_result(snapshot: ClusterSnapshot, inp: CycleInputs, outs, path: str) -> CycleResult:
+def wide_result(snapshot: ClusterSnapshot, inp: CycleInputs, outs, path: str,
+                run_pods: Optional[torch.Tensor] = None) -> CycleResult:
     """The ``CycleResult`` of a wide or wave cycle's outputs ``outs``
-    (chosen, nreq, nest, quse, rounds or None)."""
+    (chosen, nreq, nest, quse, rounds or None) and its ``run_pods``."""
     chosen, nreq, nest, quse, rounds = outs
     return finish_cycle(
         snapshot, inp.order, chosen, nreq.t().long().contiguous(),
         nest.t().long().contiguous(), quse.long(), path=path,
-        rounds=None if rounds is None else rounds[0].long(),
+        rounds=None if rounds is None else rounds[0].long(), run_pods=run_pods,
     )
 
 
@@ -488,6 +507,8 @@ def greedy_assign_wide(
         inp = prepare_wide_inputs(snapshot, cfg, extra_mask, extra_scores)
     path = "scan" if inp.alloc.device.type == "cpu" else "cuda"
     with stage("kernel"):
-        outs = run_wide(inp, cfg)
+        run_pods = (None if cfg.wave > 1
+                    else torch.zeros(1, dtype=torch.int32, device=inp.alloc.device))
+        outs = run_wide(inp, cfg, run_pods)
     with stage("finish"):
-        return wide_result(snapshot, inp, outs, path)
+        return wide_result(snapshot, inp, outs, path, run_pods)

@@ -1,9 +1,10 @@
 """An Assign's counters (``bridge/server.py ASSIGN_COUNTERS``) on the CPU:
-``placed``, ``unschedulable``, ``wait_gang``, ``gangs_held`` and
-``quota_bound`` on the cycle's record and on the launch ledger's counter
-rows ``server.assign.count.<name>``, each equal to a plain recount from
-the Sync's tables and the Assign's reply; and a cluster with no gang and
-no quota counts zeros for both without the device reduction."""
+``placed``, ``unschedulable``, ``wait_gang``, ``gangs_held``,
+``quota_bound`` and ``run_pods`` on the cycle's record and on the launch
+ledger's counter rows ``server.assign.count.<name>``, each equal to a plain
+recount from the Sync's tables and the Assign's reply; and a cluster with
+no gang and no quota counts zeros for both without the device
+reduction."""
 
 import numpy as np
 import pytest
@@ -44,18 +45,37 @@ def _assign(lists, sample=1):
     return req, np.asarray(reply.assignment), np.asarray(reply.status), record, rows
 
 
+def identical_pods():
+    """A quota cluster whose pending pods are all one template: one run."""
+    nodes, pods, gangs, quotas = generators.quota_colocation(seed=5, pods=160, nodes=6,
+                                                             tenants=4)
+    return nodes, [{**pods[0], "name": f"same-{i}"} for i in range(len(pods))], gangs, quotas
+
+
 def recount(req, assignment, status) -> dict:
-    """The five counts in plain numpy, from the Sync's own tables: the
+    """The six counts in plain numpy, from the Sync's own tables: the
     groups' used after the cycle is their synced used plus the requests of
-    every pod the cycle placed (held members included)."""
+    every pod the cycle placed (held members included); the run pods are
+    the pods, in queue order (priority down, then slot), whose requests and
+    estimates equal the previous pod's, in runs of three or more (the score
+    requests follow the requests, and the servicer's default configuration
+    gives no pod the prod split, so those rows are the whole key)."""
     P = assignment.shape[0]
     requests = _array(req.pods.requests)[:P]
+    estimated = _array(req.pods.estimated)[:P]
+    priority = list(req.pods.priority)
+    order = sorted(range(P), key=lambda p: -priority[p])
+    rows = [(tuple(requests[p]), tuple(estimated[p])) for p in order]
     gang = np.asarray(list(req.pods.gang_id) or [-1] * P)
     quota = np.asarray(list(req.pods.quota_id) or [-1] * P)
     out = {"placed": int((status == 0).sum()), "unschedulable": int((status == 1).sum()),
            "wait_gang": int((status == 2).sum()),
            "gangs_held": len({int(g) for g in gang[status == 2] if g >= 0}),
-           "quota_bound": 0}
+           "quota_bound": 0, "run_pods": 0}
+    length = 1
+    for prev, row in zip(rows, rows[1:]):
+        length = length + 1 if row == prev else 1
+        out["run_pods"] += (length >= 3) + (length == 3)
     if req.quotas.runtime.shape:
         runtime, used = _array(req.quotas.runtime), _array(req.quotas.used).copy()
         limited = _array(req.quotas.limited) != 0
@@ -71,6 +91,7 @@ def recount(req, assignment, status) -> dict:
     ("gang_batch", lambda: generators.gang_batch(seed=3, pods=96, nodes=3, min_member=8)),
     ("quota_colocation", lambda: generators.quota_colocation(seed=5, pods=160, nodes=6,
                                                              tenants=4)),
+    ("identical_pods", identical_pods),
 ])
 def test_the_counters_equal_a_plain_recount(scenario, lists):
     req, assignment, status, record, rows = _assign(lists())
@@ -85,6 +106,8 @@ def test_the_counters_equal_a_plain_recount(scenario, lists):
     # each scenario shows its mechanism
     if scenario == "gang_batch":
         assert want["gangs_held"] > 0 and want["wait_gang"] >= want["gangs_held"]
+    elif scenario == "identical_pods":
+        assert want["run_pods"] == assignment.shape[0] - 1
     else:
         assert want["quota_bound"] > 0 and want["gangs_held"] == 0
 
